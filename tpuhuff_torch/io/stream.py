@@ -1,0 +1,408 @@
+"""Streaming ``.hf2`` compress/decompress through the port's device kernels.
+
+Counterparts of the device routes of :func:`tpuhuff.io.stream.read_compress_write_hf2`
+and :func:`tpuhuff.io.stream.read_decompress_write_hf2`: the same arguments
+(``device`` names a torch device instead of a flag) and the same bytes.
+The container, tree, CRC and bit-sink code is the JAX package's host code,
+imported, not copied.
+
+Compress: pass 1 histograms the file on the device (:func:`histogram`);
+the host builds the length-limited canonical tree and writes the prelude;
+pass 2 encodes 256-byte lanes on the device (:func:`encode_blocks`) while
+the host stitches, patches the block table and CRC column and writes the
+previous chunk.  Decompress gathers each group's block rows on the host,
+decodes them on the device (:func:`decode_rows`) and verifies the CRCs.
+
+Pipelining: launches are asynchronous on the current CUDA stream, host
+buffers are pinned, copies are ``non_blocking``, and the only sync point is
+the collect of the previous chunk (submit k+1, then collect k).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from tpuhuff.core.canonical import build_tree_for_device, canonicalize
+from tpuhuff.core.format import CompressError
+from tpuhuff.core.tree import HuffTree
+from tpuhuff.core.weights import ByteWeights
+from tpuhuff.io import stream as host_stream
+from tpuhuff.io.hff import (
+    default_crc_every,
+    hf2_table_width,
+    read_hf2_header,
+    write_hf2_crc_slice,
+    write_hf2_prelude,
+    write_hf2_table_slice,
+)
+from tpuhuff.io.stream import (
+    DEVICE_HF2_BLOCK,
+    _CHUNK,
+    StreamError,
+    _BitSink,
+    _CrcVerifier,
+    _crc_spans,
+    _native,
+    _now,
+    _record_call,
+)
+
+from ..dist import pad_to_blocks, stitch_words
+from ..kernels import (
+    decode_rows,
+    encode_blocks,
+    histogram,
+    make_canonical_decode_tables,
+    make_encode_tables,
+    payload_to_lane_words,
+)
+
+__all__ = ["read_compress_write_hf2", "read_decompress_write_hf2"]
+
+# largest block the device decoder takes: bigger blocks (host-written
+# .hf2) would be one long serial scan per thread; the threaded host DFA
+# decodes those (the same rule as the JAX device route)
+DEVICE_DECODE_MAX_BLOCK = 2048
+
+_TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8,
+                 np.dtype(np.int32): torch.int32}
+
+
+def _resolve(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r} requested, but "
+                               "torch.cuda.is_available() is False")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+class _Staging:
+    """Host side of the asynchronous copies: reusable pinned buffers keyed
+    by (role, slot).  A buffer is rewritten only after the copy that last
+    used it has finished (its event).  On the CPU every call is synchronous
+    and arrays pass through as tensors."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self._bufs: dict = {}
+        self._events: dict = {}
+
+    def _buffer(self, key, nbytes: int) -> torch.Tensor:
+        ev = self._events.pop(key, None)
+        if ev is not None:
+            ev.synchronize()
+        buf = self._bufs.get(key)
+        if buf is None or buf.numel() < nbytes:
+            buf = torch.empty(max(nbytes, 1), dtype=torch.uint8, pin_memory=True)
+            self._bufs[key] = buf
+        return buf[:nbytes]
+
+    def _mark(self, key) -> None:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        self._events[key] = ev
+
+    def h2d(self, arr: np.ndarray, key) -> torch.Tensor:
+        """Copy a uint8/int32 array to the device (async on CUDA)."""
+        arr = np.ascontiguousarray(arr)
+        if not self.cuda:
+            return torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+        host = self._buffer(key, arr.nbytes)
+        host.numpy()[:] = arr.reshape(-1).view(np.uint8)
+        dev = host.to(self.device, non_blocking=True)
+        self._mark(key)
+        return dev.view(_TORCH_DTYPES[arr.dtype]).view(arr.shape)
+
+    def d2h(self, t: torch.Tensor, key) -> torch.Tensor:
+        """Start copying ``t`` to the host; read it after :meth:`fence`'s
+        event has completed."""
+        if not self.cuda:
+            return t
+        host = self._buffer(key, t.numel() * t.element_size())
+        host = host.view(t.dtype).view(t.shape)
+        host.copy_(t, non_blocking=True)
+        self._mark(key)
+        return host
+
+    def fence(self):
+        """An event after everything enqueued so far (None on the CPU)."""
+        if not self.cuda:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+
+def _device_block_encoder(tree: HuffTree, block_len: int,
+                          device: torch.device, staging: _Staging):
+    """Device encoder for ``.hf2`` block groups (counterpart of
+    ``tpuhuff.io.stream._device_block_encoder``).
+
+    Each ``block_len`` block is encoded as ``block_len // lane`` independent
+    lanes and the lane streams are bit-concatenated in order, which is
+    bit-identical to encoding the block whole (prefix-code concatenation
+    is associative); per-block bit lengths are lane sums."""
+    tables = make_encode_tables(*tree.encode_tables()).to(device)
+    ml = tables.max_len
+    lane = min(block_len & -block_len, DEVICE_HF2_BLOCK)
+    per_block = block_len // lane
+
+    def submit(data: np.ndarray, slot: int):
+        """H2D + kernel + D2H for one chunk, without waiting for any."""
+        # whole blocks of lanes: the last block's missing lanes are padding
+        lanes, valid, _ = pad_to_blocks(data, lane, per_block)
+        nb = lanes.shape[0] // per_block
+        words, bits, miss = encode_blocks(
+            staging.h2d(lanes, ("lanes", slot)),
+            staging.h2d(valid, ("valid", slot)), tables, ml)
+        host = (staging.d2h(words, ("words", slot)),
+                staging.d2h(bits, ("bits", slot)),
+                staging.d2h(miss, ("miss", slot)))
+        return host, nb, staging.fence()
+
+    def collect(handle):
+        """Wait for a submitted chunk; host stitch of its words.  Returns
+        ``(payload, total_bits, bit_lens)``."""
+        (words, bits, miss), nb, done = handle
+        if done is not None:
+            done.synchronize()
+        if int(miss.sum()):
+            raise CompressError("letter not found in codes", None)
+        bits_np = bits.numpy().astype(np.uint64)
+        payload, _ = stitch_words(words.numpy().view(np.uint32), bits_np)
+        bit_lens = bits_np.reshape(nb, per_block).sum(axis=1)
+        return payload, int(bits_np.sum()), bit_lens
+
+    submit.collect = collect
+    return submit
+
+
+def read_compress_write_hf2(
+    src_path: str, dst_path: str, block_len: int | None = None,
+    device="cuda", canonical: bool = True,
+    chunk_bytes: int | None = None, stats: dict | None = None,
+    hist_sample: int = 1, check: bool = True,
+    tree: HuffTree | None = None, max_code_len: int | None = None,
+) -> None:
+    """Compress into the block-indexed ``.hf2`` container on ``device``,
+    streaming in ``chunk_bytes`` pieces; writes the same bytes as
+    ``tpuhuff.io.stream.read_compress_write_hf2(..., device=True)``.
+
+    ``device`` is a torch device (``"cuda"``, ``"cuda:1"``, ``"cpu"``); on
+    the CPU the kernels' plain versions run.  ``block_len`` defaults to
+    256.  Pass 1 (the device histogram) is skipped when ``tree`` is given;
+    ``hist_sample > 1`` counts each chunk's first ``1/hist_sample`` bytes
+    and adds one to every bin.  The tree is length-limited to
+    ``min(max_code_len, 32)`` bits and canonicalised when ``canonical``.
+    A ``tree`` with no code for some byte of the file raises
+    :class:`CompressError`.  ``check`` writes the CRC32 column.
+    """
+    dev = _resolve(device)
+    if block_len is None:
+        block_len = DEVICE_HF2_BLOCK
+    size = os.path.getsize(src_path)
+    n_blocks = max(1, -(-size // block_len)) if size else 1
+    chunk = chunk_bytes if chunk_bytes is not None else _CHUNK
+    crc_every = default_crc_every(block_len) if check else 0
+    span_bytes = crc_every * block_len
+    # a chunk is a whole number of blocks AND of CRC spans, so each chunk
+    # patches its own table and CRC slices
+    step_unit = span_bytes if crc_every else block_len
+    step = max(1, chunk // step_unit) * step_unit
+    staging = _Staging(dev)
+    samp = max(1, int(hist_sample))
+    with open(src_path, "rb") as src, open(dst_path, "wb") as dst:
+        if tree is None:
+            # pass 1: device histogram per chunk, accumulated on the device
+            # in int64; one 256-count transfer at the end
+            acc = torch.zeros(256, dtype=torch.int64, device=dev)
+            left = size
+            k = 0
+            while left > 0:
+                piece = src.read(min(step, left))
+                if not piece:
+                    break
+                left -= len(piece)
+                if samp > 1:
+                    piece = piece[: max(1, len(piece) // samp)]
+                acc += histogram(staging.h2d(
+                    np.frombuffer(piece, dtype=np.uint8), ("hist", k % 2)))
+                k += 1
+            counts = acc.cpu().numpy()
+            if samp > 1 and size > 0:
+                counts = counts + 1  # every byte gets a code
+            ml_cap = 32 if max_code_len is None else min(max_code_len, 32)
+            tree, _limited = build_tree_for_device(ByteWeights(counts),
+                                                   max_len=ml_cap)
+        if canonical:
+            tree = canonicalize(tree)
+        lens_lut, _ = tree.encode_tables()
+        width = hf2_table_width(block_len, int(lens_lut.max(initial=1)))
+        table_off, crc_off, _ = write_hf2_prelude(
+            dst, tree, size, block_len, n_blocks, width, canonical,
+            crc_every=crc_every,
+        )
+        # pass 2: chunk k+1 is read, copied and launched before chunk k is
+        # collected, stitched and written
+        src.seek(0)
+        submit = _device_block_encoder(tree, block_len, dev, staging)
+        nat = _native()
+        sink = _BitSink(dst)
+        bidx = 0
+        left = size
+        k = 0
+        pending = None  # (handle, crcs, submit_time)
+        while True:
+            handle = None
+            if left > 0:
+                piece = src.read(min(step, left))
+                if piece:
+                    data = np.frombuffer(piece, dtype=np.uint8)
+                    left -= data.size
+                    crcs = (_crc_spans(data, span_bytes, nat)
+                            if crc_every else None)
+                    handle = (submit(data, k % 2), crcs, _now())
+                    k += 1
+                else:
+                    left = 0
+            if pending is not None:
+                h, crcs_p, t0_p = pending
+                payload, nbits, bit_lens = submit.collect(h)
+                _record_call(stats, _now() - t0_p)
+                write_hf2_table_slice(dst, table_off, width, bidx, bit_lens)
+                if crcs_p is not None:
+                    write_hf2_crc_slice(dst, crc_off, bidx // crc_every, crcs_p)
+                sink.write(payload, nbits)
+                bidx += bit_lens.size
+            pending = handle
+            if pending is None and left <= 0:
+                break
+        sink.flush()
+
+
+def _read_header(src, src_path: str):
+    try:
+        return read_hf2_header(src)
+    except StreamError:
+        raise
+    except ValueError as e:
+        raise StreamError(f"{src_path!r}: {e}", "InvalidHeaderInfo") from None
+
+
+def _invalid(src_path: str) -> StreamError:
+    return StreamError(f"{src_path!r} stores invalid header information",
+                       "InvalidHeaderInfo")
+
+
+def read_decompress_write_hf2(
+    src_path: str, dst_path: str, device="cuda",
+    chunk_bytes: int | None = None, stats: dict | None = None,
+    check: bool = True,
+) -> None:
+    """Decode a ``.hf2`` container on ``device``, in groups of about
+    ``chunk_bytes`` output bytes; the counterpart of
+    ``tpuhuff.io.stream.read_decompress_write_hf2(..., device=True)``.
+
+    As in the JAX device route, an empty file, a one-letter tree and
+    blocks longer than 2048 bytes go to the host decoder, which has no
+    per-block serial scan.  ``check`` verifies the CRC32 column, raising
+    ``StreamError(kind="CorruptData")`` on a mismatch.  A tree whose codes
+    are not canonical raises :class:`NotImplementedError` (its device
+    decoder is not ported yet).
+    """
+    dev = _resolve(device)
+    chunk = chunk_bytes if chunk_bytes is not None else _CHUNK
+    with open(src_path, "rb") as src, open(dst_path, "wb") as dst:
+        hdr = _read_header(src, src_path)
+        on_host = (hdr.orig_len == 0 or hdr.tree.is_leaf(hdr.tree.root)
+                   or hdr.block_len > DEVICE_DECODE_MAX_BLOCK)
+        if not on_host:
+            _decode_groups(hdr, src, dst, src_path, dev, chunk, stats, check)
+            return
+    host_stream.read_decompress_write_hf2(
+        src_path, dst_path, chunk_bytes=chunk_bytes, stats=stats, check=check)
+
+
+def _decode_groups(hdr, src, dst, src_path: str, dev: torch.device,
+                   chunk: int, stats: dict | None, check: bool) -> None:
+    """The device branch of :func:`read_decompress_write_hf2`."""
+    # header self-consistency before any allocation sized from its fields
+    if (hdr.block_len == 0 or hdr.num_blocks == 0
+            or hdr.orig_len > hdr.num_blocks * hdr.block_len
+            or hdr.orig_len <= (hdr.num_blocks - 1) * hdr.block_len):
+        raise _invalid(src_path)
+    ends = hdr.end_bits.astype(np.uint64)
+    if ends.size and np.any(np.diff(ends.astype(np.int64)) < 0):
+        raise _invalid(src_path)
+    tables = make_canonical_decode_tables(hdr.tree)
+    if tables is None:
+        raise NotImplementedError(
+            f"{src_path!r}: device decode of a non-canonical tree is not "
+            "ported yet; decode it with tpuhuff.io.stream."
+            "read_decompress_write_hf2(device=False)")
+    tables = tables.to(dev)
+    verifier = None
+    if check and hdr.crcs is not None and hdr.crc_every:
+        verifier = _CrcVerifier(hdr.crcs, hdr.crc_every * hdr.block_len,
+                                _native(), src_path)
+
+    def emit(piece: np.ndarray) -> None:
+        dst.write(piece)
+        if verifier is not None:
+            verifier.feed(piece)
+
+    starts = np.concatenate([[np.uint64(0)], ends[:-1]])
+    B = hdr.num_blocks
+    gsize = max(1024, chunk // hdr.block_len)  # blocks per group
+    staging = _Staging(dev)
+
+    def submit_group(g0: int, slot: int):
+        """Read + row gather + H2D + kernel + D2H for one group."""
+        g1 = min(g0 + gsize, B)
+        byte_lo = int(starts[g0]) // 8
+        byte_hi = (int(ends[g1 - 1]) + 7) // 8
+        src.seek(hdr.payload_offset + byte_lo)
+        buf = np.frombuffer(src.read(byte_hi - byte_lo), dtype=np.uint8)
+        if buf.size < byte_hi - byte_lo:
+            raise StreamError(f"{src_path!r} truncated payload",
+                              "MissingHeaderInfo")
+        ls = (starts[g0:g1] - np.uint64(byte_lo * 8)).astype(np.int64)
+        le = (ends[g0:g1] - np.uint64(byte_lo * 8)).astype(np.int64)
+        rows, bit0 = payload_to_lane_words(buf, ls, le, hdr.block_len)
+        out = decode_rows(
+            staging.h2d(rows.view(np.int32), ("rows", slot)),
+            staging.h2d(bit0, ("bit0", slot)),
+            staging.h2d((le - ls).astype(np.int32), ("nbits", slot)),
+            tables, hdr.block_len)
+        last = (hdr.orig_len - (B - 1) * hdr.block_len if g1 == B
+                else hdr.block_len)
+        return staging.d2h(out, ("out", slot)), last, staging.fence()
+
+    pending = None
+    for k, g0 in enumerate(list(range(0, B, gsize)) + [None]):
+        handle = None
+        if g0 is not None:
+            handle = (submit_group(g0, k % 2), _now())
+        if pending is not None:
+            (out, last, done), t0 = pending
+            if done is not None:
+                done.synchronize()
+            out = out.numpy()
+            _record_call(stats, _now() - t0)
+            if last != hdr.block_len:
+                emit(out[:-1].reshape(-1))
+                emit(out[-1, :last])
+            else:
+                emit(out.reshape(-1))
+        pending = handle
+    if verifier is not None:
+        verifier.finish()

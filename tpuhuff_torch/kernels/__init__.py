@@ -1,0 +1,45 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch version.
+
+* :func:`encode_blocks` (``csrc/encode.cu``) — lanes of bytes to MSB-first
+  Huffman words, exact bit counts and missing-letter counts;
+* :func:`decode_rows` (``csrc/decode.cu``) — canonical decode of
+  independent ``.hf2`` blocks;
+* :func:`histogram` (``csrc/histogram.cu``) — exact 256-bin byte counts.
+
+A wrapper launches its kernel for CUDA tensors and runs its plain version
+(``*_reference``) for CPU tensors; ``<wrapper>.launches`` counts the kernel
+launches.  The kernels are compiled at first use, never at import.
+"""
+
+from .decode import (
+    DecodeTables,
+    decode_hf2_device,
+    decode_rows,
+    decode_rows_reference,
+    make_canonical_decode_tables,
+    payload_to_lane_words,
+)
+from .encode import (
+    EncodeTables,
+    encode_blocks,
+    encode_blocks_reference,
+    make_encode_tables,
+    out_words,
+)
+from .histogram import histogram, histogram_reference
+
+__all__ = [
+    "DecodeTables",
+    "EncodeTables",
+    "decode_hf2_device",
+    "decode_rows",
+    "decode_rows_reference",
+    "encode_blocks",
+    "encode_blocks_reference",
+    "histogram",
+    "histogram_reference",
+    "make_canonical_decode_tables",
+    "make_encode_tables",
+    "out_words",
+    "payload_to_lane_words",
+]

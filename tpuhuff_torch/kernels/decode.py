@@ -1,0 +1,249 @@
+"""Device decode: canonical prefix-code decode of independent blocks.
+
+Counterpart of the canonical route of :func:`tpuhuff.kernels.decode.decode_rows_device`
+(``decode_blocks_pallas_canonical`` -> ``decode_rows_fused`` -> the Pallas
+kernel ``tpuhuff.kernels.pallas_decode._decode_kernel``).  The ``.hf2``
+block index makes every block an independent lane: ``rows`` (B, W) holds
+each block's payload words, ``bit0``/``nbits`` its start bit and bit count,
+and the output is (B, block_len) uint8, zero past each block's symbols.
+
+The table construction and the host row gather are the JAX package's, with the
+same arithmetic, so both packages feed their kernels identical operands.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from tpuhuff.core.canonical import canonical_codes_from_lengths
+from tpuhuff.core.tree import HuffTree
+
+from . import _build
+from .encode import as_i32
+
+__all__ = [
+    "DecodeTables",
+    "make_canonical_decode_tables",
+    "payload_to_lane_words",
+    "decode_rows",
+    "decode_rows_reference",
+    "decode_hf2_device",
+]
+
+_U32 = 0xFFFFFFFF
+
+
+def _unpack4(perm4: np.ndarray) -> np.ndarray:
+    """(64,) u32 packed 4 bytes per word (low byte first) -> (256,) uint8."""
+    return np.ascontiguousarray(perm4, dtype=np.uint32).reshape(64).view(
+        "<u4").view(np.uint8).copy()
+
+
+@dataclass(frozen=True)
+class DecodeTables:
+    """Canonical decode ladder: ``ub`` (32,) int32 bit patterns of the u32
+    left-aligned exclusive upper bounds per length, ``dd`` (32,) int32
+    ladder deltas, ``perm`` (256,) uint8 canonical index -> byte, and the
+    tree's ``max_len`` (1..32)."""
+
+    ub: torch.Tensor
+    dd: torch.Tensor
+    perm: torch.Tensor
+    max_len: int
+
+    @classmethod
+    def from_numpy(cls, ub, dd, perm4, max_len: int) -> "DecodeTables":
+        """From :func:`tpuhuff.kernels.decode.make_canonical_decode_tables`
+        output as numpy: ``(ub u32[<=31], dd i32[<=32], perm4 u32[64], ml)``."""
+        ml = int(max_len)
+        if not 1 <= ml <= 32:
+            raise OverflowError("device decoder supports code lengths <= 32")
+        ub32 = np.zeros(32, np.uint32)
+        ub = np.asarray(ub, dtype=np.uint32).reshape(-1)
+        ub32[: ub.size] = ub
+        dd32 = np.zeros(32, np.int32)
+        dd = np.asarray(dd, dtype=np.int32).reshape(-1)
+        dd32[: dd.size] = dd
+        return cls(as_i32(ub32), torch.from_numpy(dd32),
+                   torch.from_numpy(_unpack4(perm4)), ml)
+
+    def to(self, device) -> "DecodeTables":
+        return DecodeTables(self.ub.to(device), self.dd.to(device),
+                            self.perm.to(device), self.max_len)
+
+
+def make_canonical_decode_tables(tree: HuffTree) -> DecodeTables | None:
+    """Ladder tables for a tree with CANONICAL codes, or None otherwise
+    (same construction as :func:`tpuhuff.kernels.decode.make_canonical_decode_tables`):
+
+    * ``ub[L-1]``: exclusive upper bound, left-aligned, of all codes of
+      length <= L, clamped to 0xFFFFFFFF; ``len = 1 + #(window >= ub)``;
+    * ``dd``: deltas folding the index offsets into the same compares,
+      ``idx = (window >> (32-len)) + dd[0] + sum ind_L * dd[L]``;
+    * ``perm``: canonical index -> byte, padded with the last symbol.
+    """
+    codes = tree.read_codes()
+    lengths = [(letter, code.length) for letter, code in codes.items()]
+    if any(l > 32 for _, l in lengths):
+        return None
+    want = canonical_codes_from_lengths(lengths)
+    for letter, code in codes.items():
+        if want[letter] != (code.value, code.length):
+            return None
+    items = sorted(codes.items(), key=lambda kv: (kv[1].length, kv[0]))
+    ml = max(l for _, l in lengths)
+    count = np.zeros(ml + 1, dtype=np.int64)
+    for _, l in lengths:
+        count[l] += 1
+    first = np.zeros(ml + 1, dtype=np.int64)
+    code_v = 0
+    for L in range(1, ml + 1):
+        code_v = (code_v + count[L - 1]) << 1
+        first[L] = code_v
+    cum_before = np.concatenate([[0], np.cumsum(count[1:])])[:-1]
+    delta = [int(cum_before[L - 1] - first[L]) for L in range(1, ml + 1)]
+    ub = np.zeros(max(ml - 1, 1), dtype=np.uint32)
+    for L in range(1, ml):
+        ub[L - 1] = min(int(first[L] + count[L]) << (32 - L), _U32)
+    dd = np.zeros(ml, dtype=np.int32)
+    dd[0] = delta[0]
+    for j in range(1, ml):
+        dd[j] = delta[j] - delta[j - 1]
+    perm = np.zeros(256, dtype=np.uint8)
+    K = len(items)
+    perm[:K] = [int(letter) for letter, _ in items]
+    if K < 256:
+        perm[K:] = perm[K - 1]
+    perm4 = perm.view("<u4").copy()
+    return DecodeTables.from_numpy(ub, dd, perm4, ml)
+
+
+def payload_to_lane_words(payload, start_bits: np.ndarray, end_bits: np.ndarray,
+                          block_len: int) -> tuple[np.ndarray, np.ndarray]:
+    """Slice a stitched payload into per-block u32 word rows (host).
+
+    Block k's row starts at the u32 word holding ``start_bits[k]``.  Returns
+    ``(rows (B, W) uint32, bit0 (B,) int32)``, ``bit0`` the start bit inside
+    the row; W covers the longest block plus one slack word, so the 2-word
+    window never reads past the row.  Same layout as
+    :func:`tpuhuff.kernels.decode.payload_to_lane_words`.
+    """
+    from tpuhuff.io.stream import _native
+
+    raw = (payload.view(np.uint8) if isinstance(payload, np.ndarray)
+           else np.frombuffer(bytes(payload), dtype=np.uint8))
+    nwords = (raw.size + 3) // 4 + 2  # whole words + slack for window overreach
+    buf = np.zeros(nwords * 4, dtype=np.uint8)
+    buf[: raw.size] = raw
+    words = buf.view(">u4").astype(np.uint32)
+    start_w = (np.asarray(start_bits) // 32).astype(np.int64)
+    end_w = ((np.asarray(end_bits) + 31) // 32).astype(np.int64)
+    width = int(np.max(end_w - start_w + 1, initial=1)) + 1
+    nat = _native()
+    if nat is not None:
+        rows = nat.extract_rows(words, start_w.astype(np.uint64), width)
+    else:
+        idx = np.minimum(start_w[:, None] + np.arange(width)[None, :],
+                         words.size - 1)
+        rows = words[idx]
+    bit0 = (np.asarray(start_bits) - start_w * 32).astype(np.int32)
+    return rows, bit0
+
+
+def _check_args(rows, bit0, nbits, tables, block_len):
+    if rows.dim() != 2:
+        raise ValueError("rows must be (B, W) int32")
+    B, W = rows.shape
+    if block_len < 1:
+        raise ValueError("block_len must be positive")
+    dev = rows.device
+    _build.check_tensor(rows, "rows", torch.int32, (B, W), dev)
+    _build.check_tensor(bit0, "bit0", torch.int32, (B,), dev)
+    _build.check_tensor(nbits, "nbits", torch.int32, (B,), dev)
+    _build.check_tensor(tables.ub, "tables.ub", torch.int32, (32,), dev)
+    _build.check_tensor(tables.dd, "tables.dd", torch.int32, (32,), dev)
+    _build.check_tensor(tables.perm, "tables.perm", torch.uint8, (256,), dev)
+    return B, W
+
+
+def decode_rows(rows: torch.Tensor, bit0: torch.Tensor, nbits: torch.Tensor,
+                tables: DecodeTables, block_len: int) -> torch.Tensor:
+    """Decode B blocks of up to ``block_len`` symbols; returns (B,
+    block_len) uint8, zero past each block's last whole code within
+    ``nbits``.  ``rows`` (B, W) int32 holds u32 bit patterns, MSB-first.
+
+    CUDA tensors launch the kernel (``csrc/decode.cu``); CPU tensors take
+    :func:`decode_rows_reference`."""
+    B, W = _check_args(rows, bit0, nbits, tables, block_len)
+    if rows.device.type == "cpu":
+        return decode_rows_reference(rows, bit0, nbits, tables, block_len)
+    if rows.device.type != "cuda":
+        raise ValueError(f"unsupported device {rows.device}")
+    out = torch.empty((B, block_len), dtype=torch.uint8, device=rows.device)
+    _build.launch("tpuhuff_decode_rows", rows.device, rows.data_ptr(),
+                  bit0.data_ptr(), nbits.data_ptr(), tables.ub.data_ptr(),
+                  tables.dd.data_ptr(), tables.perm.data_ptr(), out.data_ptr(),
+                  B, W, int(block_len), tables.max_len)
+    decode_rows.launches += 1
+    return out
+
+
+decode_rows.launches = 0
+
+
+def decode_rows_reference(rows: torch.Tensor, bit0: torch.Tensor,
+                          nbits: torch.Tensor, tables: DecodeTables,
+                          block_len: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`decode_rows` (any device): one
+    vectorised step over all blocks per output position, in int64."""
+    B, W = _check_args(rows, bit0, nbits, tables, block_len)
+    dev = rows.device
+    ml = tables.max_len
+    # two zero columns: words past W read as 0
+    words = torch.zeros((B, W + 2), dtype=torch.int64, device=dev)
+    words[:, :W] = rows.long() & _U32
+    ub = (tables.ub.long() & _U32)[: ml - 1]
+    dd = tables.dd.long()
+    perm = tables.perm.long()
+    cur = bit0.long()
+    consumed = torch.zeros(B, dtype=torch.int64, device=dev)
+    limit = nbits.long()
+    out = torch.zeros((B, block_len), dtype=torch.uint8, device=dev)
+    for i in range(block_len):
+        q = (cur >> 5).clamp(max=W)[:, None]
+        rr = cur & 31
+        w0 = words.gather(1, q)[:, 0]
+        w1 = words.gather(1, q + 1)[:, 0]
+        window = ((w0 << rr) | (w1 >> (32 - rr))) & _U32
+        ind = (window[:, None] >= ub[None, :]).long()
+        ln = 1 + ind.sum(dim=1)
+        delta = dd[0] + (ind * dd[None, 1:ml]).sum(dim=1)
+        idx = ((window >> (32 - ln)) + delta) & 255
+        active = consumed + ln <= limit
+        out[:, i] = torch.where(active, perm[idx], 0).to(torch.uint8)
+        ln = torch.where(active, ln, 0)
+        cur = cur + ln
+        consumed = consumed + ln
+    return out
+
+
+def decode_hf2_device(header, payload: bytes, device="cuda") -> bytes:
+    """Decode a whole canonical ``.hf2`` payload on ``device``; returns the
+    original bytes (counterpart of :func:`tpuhuff.kernels.decode.decode_hf2_device`
+    for canonical trees)."""
+    tables = make_canonical_decode_tables(header.tree)
+    if tables is None:
+        raise NotImplementedError(
+            "device decode of non-canonical trees is not ported yet")
+    ends = header.end_bits.astype(np.int64)
+    starts = np.concatenate([[0], ends[:-1]])
+    rows, bit0 = payload_to_lane_words(payload, starts, ends, header.block_len)
+    device = torch.device(device)
+    out = decode_rows(
+        as_i32(rows).to(device), torch.from_numpy(bit0).to(device),
+        torch.from_numpy((ends - starts).astype(np.int32)).to(device),
+        tables.to(device), header.block_len)
+    return out.cpu().numpy().reshape(-1)[: header.orig_len].tobytes()
