@@ -2,29 +2,39 @@
 """Smoke run of the PyTorch + CUDA port (``tpuhuff_torch``) on one NVIDIA GPU.
 
 Run from the root of a checkout on a machine with a CUDA card, the CUDA
-toolkit (``nvcc``) and PyTorch built for CUDA:
+toolkit (``nvcc``), ``g++`` and PyTorch built for CUDA:
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-2. build of the three CUDA kernels from ``tpuhuff_torch/csrc``;
-3. each kernel against its plain PyTorch version on the card, bit-exact,
-   on textlike, uniform-random, single-symbol and Fibonacci (32-bit code)
-   inputs with ragged lanes and missing letters, plus histograms from 1 B
-   to 100 MiB; kernel and plain times at the main path's shapes;
-4. the main path: the ``.hf2`` device round trip through
-   ``tpuhuff_torch.io`` on 100 MiB of textlike data (seed 42), a 16 MiB
-   uniform-random file and the ~15 MB Fibonacci file.  Each container must
-   have the SHA-256 of the host C++ writer's (``block_len=256,
-   max_code_len=32``), and each decode must restore the source; every
-   kernel's launch count must rise;
-5. wall-clock rates of port compress and decompress beside the host C++
-   writer and reader and a device-to-device copy of the same bytes.
+2. build of the four CUDA kernels from ``tpuhuff_torch/csrc`` (one ``nvcc``
+   per source, side by side) and of the port's C++ host runtime
+   (``cpp/huffc.cpp`` with ``g++``);
+3. each kernel against its plain PyTorch version on the card, bit-exact:
+   encode (K1) and canonical decode (K2) on textlike, uniform-random,
+   single-symbol and Fibonacci (32-bit code) inputs with ragged lanes and
+   missing letters; general-tree decode (K4) with non-canonical trees on
+   textlike at the main path's shape, 4 MiB uniform random, a 2-letter
+   alphabet, the Fibonacci file (32-bit codes), blocks cut short and rows
+   of random words that are not codes; histograms (K3) from 1 B to
+   100 MiB.  Kernel, plain and library-call times at the main path's shapes;
+4. the main path, ``tpuhuff_torch.io`` on the device, in two runs, each
+   with every launch count set to 0 just before it and read just after:
+   (a) canonical containers of 100 MiB of textlike data (seed 42), a
+   16 MiB uniform-random file and the ~15 MB Fibonacci file: K1, K2, K3;
+   (b) ``canonical=False`` containers of the textlike and Fibonacci files,
+   and of the Fibonacci file under a non-canonical 32-bit tree: K4 and no
+   K2 where the tree is not canonical.  Each container must have the
+   SHA-256 of the port's host C++ writer's (``block_len=256,
+   max_code_len=32``), and each device decode must restore the source;
+5. wall-clock rates of port compress and decompress (canonical and not)
+   beside the host C++ writer and reader and a device-to-device copy.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.  Nothing of JAX is imported.
+``{"ok": true, "device": {...}}``.  Nothing of JAX, and nothing of the JAX
+package, is imported.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ import time
 MAIN_MB = 100          # config 2: 100 MiB of enwik-like text
 RANDOM_MB = 16
 LANE = 256             # the device writer's default block_len
+HBM_BYTES_PER_MS = 3.35e9  # H100 SXM: 3.35 TB/s (NVIDIA's data sheet)
 
 
 def fail(msg: str) -> None:
@@ -100,6 +111,16 @@ def max_err(torch, got, want) -> int:
     return int((got.long() - want.long()).abs().max())
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def payload_bytes(bit0, nbits) -> int:
+    """Bytes of the row words a decoder must read: the words that hold each
+    block's bits, from ``bit0`` to ``bit0 + nbits``."""
+    return int(((bit0.long() + nbits.long() + 31) // 32).sum()) * 4
+
+
 def sha(path: str) -> str:
     h = hashlib.sha256()
     with open(path, "rb") as fp:
@@ -131,19 +152,27 @@ def main() -> None:
         import tpuhuff_torch  # noqa: F401
     except ImportError as e:
         fail(f"tpuhuff_torch is not importable ({e}): run from a checkout")
-    from tpuhuff.core.canonical import build_tree_for_device, canonicalize
-    from tpuhuff.core.weights import ByteWeights
-    from tpuhuff.io import stream as host_stream
+    from tpuhuff_torch import native
+    from tpuhuff_torch.core.canonical import build_tree_for_device, canonicalize
+    from tpuhuff_torch.core.tree import HuffTree
+    from tpuhuff_torch.core.weights import ByteWeights
     from tpuhuff_torch.io import read_compress_write_hf2, read_decompress_write_hf2
+    from tpuhuff_torch.io.host import (
+        read_compress_write_hf2_host,
+        read_decompress_write_hf2_host,
+    )
     from tpuhuff_torch.kernels import (
         _build,
         decode_rows,
+        decode_rows_general,
+        decode_rows_general_reference,
         decode_rows_reference,
         encode_blocks,
         encode_blocks_reference,
         histogram,
         histogram_reference,
         make_canonical_decode_tables,
+        make_decode_tables,
         make_encode_tables,
     )
 
@@ -158,22 +187,57 @@ def main() -> None:
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(dev)}, count "
-        f"{torch.cuda.device_count()}, python {sys.version.split()[0]}")
+        f"{torch.cuda.device_count()}, python {sys.version.split()[0]}, "
+        f"{os.cpu_count()} host cores")
 
     # -- phase 2: build ------------------------------------------------------
     t0 = time.perf_counter()
     _build.lib()
     log(f"phase 2: kernels built and loaded in {time.perf_counter() - t0:.3f} s "
         f"(nvcc {_build.build_seconds} s; None = cached build)")
+    t0 = time.perf_counter()
+    native.lib()
+    log(f"phase 2: host runtime built and loaded in "
+        f"{time.perf_counter() - t0:.3f} s (g++ {native.build_seconds} s; "
+        f"None = cached build)")
 
     # -- phase 3: kernels against their plain versions -----------------------
     text = make_textlike(MAIN_MB << 20, np)
     fib = make_fib(np)
     rng = np.random.default_rng(7)
 
+    def device_tree(data):
+        """The device writer's tree of ``data``, before canonicalisation."""
+        return build_tree_for_device(
+            ByteWeights(np.bincount(data, minlength=256)), 32)[0]
+
     def tree_of(data):
-        return canonicalize(build_tree_for_device(
-            ByteWeights(np.bincount(data, minlength=256)), 32)[0])
+        return canonicalize(device_tree(data))
+
+    def general_tree_of(data):
+        """A non-canonical tree of ``data``: the device writer's tree, or,
+        where that is canonical by construction (length-limited, or a tiny
+        alphabet), its mirror (every code's bits inverted)."""
+        tree = device_tree(data)
+        if make_canonical_decode_tables(tree) is not None:
+            tree = HuffTree(tree.right, tree.left, tree.letters, tree.weights,
+                            tree.root)
+        if make_canonical_decode_tables(tree) is not None:
+            fail("general_tree_of gave a canonical tree")
+        return tree
+
+    def encode_rows(data, tree, valid=None):
+        """K1 over ``data`` as LANE-byte lanes: ``(lanes, valid, tables,
+        rows, bit0, bits)`` ready for a decoder."""
+        etab = make_encode_tables(*tree.encode_tables()).to(dev)
+        B = data.size // LANE
+        lanes = torch.from_numpy(data[: B * LANE].reshape(B, LANE)).to(dev)
+        if valid is None:
+            valid = torch.full((B,), LANE, dtype=torch.int32, device=dev)
+        words, bits, miss = encode_blocks(lanes, valid, etab)
+        rows = torch.nn.functional.pad(words, (0, 1))
+        bit0 = torch.zeros(B, dtype=torch.int32, device=dev)
+        return lanes, valid, etab, (words, bits, miss), rows, bit0
 
     main_lanes = (64 << 20) // LANE  # one 64 MiB chunk of pass 2
     head = text[: 1 << 20]
@@ -185,17 +249,14 @@ def main() -> None:
         # a tree of the bytes < 128 only: the random bytes >= 128 have no code
         "missing": (head, tree_of(head[head < 128])),
     }
-    errs = {"encode": 0, "decode": 0, "histogram": 0}
-    shapes = {}
+    errs = {"encode": 0, "decode": 0, "decode_general": 0, "histogram": 0}
     for name, (data, tree) in cases.items():
         tree = tree if tree is not None else tree_of(data)
-        etab = make_encode_tables(*tree.encode_tables()).to(dev)
         B = data.size // LANE
-        lanes = torch.from_numpy(data.reshape(B, LANE)).to(dev)
         valid = torch.full((B,), LANE, dtype=torch.int32, device=dev)
         valid[1::5] = torch.from_numpy(
             rng.integers(0, LANE, valid[1::5].numel()).astype(np.int32)).to(dev)
-        got = encode_blocks(lanes, valid, etab)
+        lanes, valid, etab, got, rows, bit0 = encode_rows(data, tree, valid)
         want = encode_blocks_reference(lanes, valid, etab)
         torch.cuda.synchronize()
         err = max(max_err(torch, g, w) for g, w in zip(got, want))
@@ -204,8 +265,6 @@ def main() -> None:
         n_miss = int(miss.sum())
         if (n_miss > 0) != (name == "missing"):
             fail(f"encode {name}: {n_miss} missing letters")
-        rows = torch.nn.functional.pad(words, (0, 1))
-        bit0 = torch.zeros(B, dtype=torch.int32, device=dev)
         nbits = bits.clone()
         nbits[2::7] = (nbits[2::7] - 9).clamp(min=0)  # blocks cut short
         dtab = make_canonical_decode_tables(tree).to(dev)
@@ -220,9 +279,48 @@ def main() -> None:
         log(f"phase 3: {name}: {B} lanes, max code {etab.max_len} bits, "
             f"encode err {err}, decode err {max_err(torch, out, plain)}, "
             f"missing {n_miss}")
+
+    # K4: non-canonical trees; full blocks must decode to their source
+    rand4 = rng.integers(0, 256, 4 << 20, dtype=np.uint8)
+    two = rng.integers(97, 99, 1 << 20, dtype=np.uint8)
+    general = {  # name: (data, the bytes whose counts make the tree)
+        "textlike": (text[: main_lanes * LANE], text),
+        "random": (rand4, rand4),
+        "two letters": (two, two),
+        "fib": (fib[: (fib.size // LANE) * LANE], fib),  # 32-bit codes
+    }
+    for name, (data, counted) in general.items():
+        tree = general_tree_of(counted)
+        lanes, _, etab, (_, bits, _), rows, bit0 = encode_rows(data, tree)
+        nbits = bits.clone()
+        nbits[2::7] = (nbits[2::7] - 9).clamp(min=0)  # blocks cut short
+        gtab = make_decode_tables(tree).to(dev)
+        out = decode_rows_general(rows, bit0, nbits, gtab, LANE)
+        plain = decode_rows_general_reference(rows, bit0, nbits, gtab, LANE)
+        torch.cuda.synchronize()
+        err = max_err(torch, out, plain)
+        errs["decode_general"] = max(errs["decode_general"], err)
+        full = nbits == bits
+        if not torch.equal(out[full], lanes[full]):
+            fail(f"decode_general {name}: the full blocks do not round-trip")
+        log(f"phase 3: decode_general {name}: {lanes.shape[0]} blocks, max "
+            f"code {etab.max_len} bits, non-canonical tree, err {err}")
         if name == "textlike":
-            shapes = {"lanes": lanes, "valid": valid, "etab": etab,
-                      "rows": rows, "bit0": bit0, "nbits": bits, "dtab": dtab}
+            gtab_text = gtab
+    # rows of random words: not codes, but the two must still agree
+    B, W = 1 << 14, 40
+    rows = torch.from_numpy(rng.integers(0, 1 << 32, (B, W), dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32)).to(dev)
+    bit0 = torch.from_numpy(rng.integers(0, 32, B).astype(np.int32)).to(dev)
+    nbits = torch.from_numpy(rng.integers(0, 32 * (W - 1), B)
+                             .astype(np.int32)).to(dev)
+    out = decode_rows_general(rows, bit0, nbits, gtab_text, LANE)
+    plain = decode_rows_general_reference(rows, bit0, nbits, gtab_text, LANE)
+    torch.cuda.synchronize()
+    err = max_err(torch, out, plain)
+    errs["decode_general"] = max(errs["decode_general"], err)
+    log(f"phase 3: decode_general on {B} rows of random words: err {err}")
+
     text_dev = torch.from_numpy(text).to(dev)
     for n in (1, 15, 4097, (1 << 20) + 3, MAIN_MB << 20):
         for off in (0, 3):
@@ -236,28 +334,77 @@ def main() -> None:
     if any(errs.values()):
         fail(f"kernels disagree with their plain versions: {errs}")
 
-    s = shapes
+    # timing at the main path's shapes: one 64 MiB chunk of full 256-byte
+    # blocks, encoded under the canonical tree (K1, K2) and under the same
+    # code lengths in the device writer's own, non-canonical order (K4)
+    main = text[: main_lanes * LANE]
+    lanes, valid, etab, (words, bits, _), rows, bit0 = encode_rows(
+        main, tree_of(text))
+    gtree = general_tree_of(text)
+    _, _, _, (_, gbits, _), grows, _ = encode_rows(main, gtree)
+    s = {"lanes": lanes, "valid": valid, "etab": etab, "words": words,
+         "rows": rows, "bit0": bit0, "nbits": bits,
+         "dtab": make_canonical_decode_tables(tree_of(text)).to(dev),
+         "grows": grows, "gnbits": gbits,
+         "gtab": make_decode_tables(gtree).to(dev)}
+    if not torch.equal(bits, gbits):  # same code lengths, same bit counts
+        fail("canonical and non-canonical trees give other bit counts")
     hist_chunk = text_dev[: 64 << 20]
-    timing = {
+    timing = {  # (kernel ms, plain ms, library ms or None)
         "encode": (cuda_ms(torch, lambda: encode_blocks(
                        s["lanes"], s["valid"], s["etab"])),
                    cuda_ms(torch, lambda: encode_blocks_reference(
-                       s["lanes"], s["valid"], s["etab"]), reps=2)),
+                       s["lanes"], s["valid"], s["etab"]), reps=2), None),
         "decode": (cuda_ms(torch, lambda: decode_rows(
                        s["rows"], s["bit0"], s["nbits"], s["dtab"], LANE)),
                    cuda_ms(torch, lambda: decode_rows_reference(
                        s["rows"], s["bit0"], s["nbits"], s["dtab"], LANE),
-                       reps=2)),
+                       reps=2), None),
+        "decode_general": (
+            cuda_ms(torch, lambda: decode_rows_general(
+                s["grows"], s["bit0"], s["gnbits"], s["gtab"], LANE)),
+            cuda_ms(torch, lambda: decode_rows_general_reference(
+                s["grows"], s["bit0"], s["gnbits"], s["gtab"], LANE), reps=2),
+            None),
         "histogram": (cuda_ms(torch, lambda: histogram(hist_chunk)),
-                      cuda_ms(torch, lambda: histogram_reference(hist_chunk))),
+                      cuda_ms(torch, lambda: histogram_reference(hist_chunk)),
+                      cuda_ms(torch, lambda: torch.bincount(hist_chunk,
+                                                            minlength=256))),
     }
-    for k, (ms, plain_ms) in timing.items():
+    # the least time for the same work: each input read once and each
+    # output written once at 3.35 TB/s (the tables, 1-2 KiB, are counted too)
+    out_b = main_lanes * LANE
+    moved = {
+        "encode": nbytes(s["lanes"], s["valid"], s["etab"].lens,
+                         s["etab"].acodes, s["words"]) + 8 * main_lanes,
+        "decode": payload_bytes(s["bit0"], s["nbits"]) + 8 * main_lanes
+                  + nbytes(s["dtab"].ub, s["dtab"].dd, s["dtab"].perm) + out_b,
+        "decode_general": payload_bytes(s["bit0"], s["gnbits"])
+                          + 8 * main_lanes + nbytes(s["gtab"].thr,
+                                                    s["gtab"].sym,
+                                                    s["gtab"].len) + out_b,
+        "histogram": hist_chunk.numel() + 256 * 8,
+    }
+    bound = {k: b / HBM_BYTES_PER_MS for k, b in moved.items()}
+    for k, (ms, plain_ms, lib_ms) in timing.items():
         log(f"phase 3: {k} at the main path's shapes: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms [{card}]")
-    del shapes, s, text_dev, hist_chunk
+            f"plain {plain_ms:.4f} ms, library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{bound[k]:.4f} ms ({moved[k]} B at 3.35 TB/s) [{card}]")
+    del s, lanes, valid, words, rows, grows, text_dev, hist_chunk
     torch.cuda.synchronize()
 
     # -- phase 4: the main path ----------------------------------------------
+    counters = (encode_blocks, decode_rows, decode_rows_general, histogram)
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+
+    def read():
+        torch.cuda.synchronize()
+        return {fn.__name__: fn.launches for fn in counters}
+
     work = tempfile.mkdtemp(prefix="tpuhuff_chip_smoke_")
     try:
         files = {"textlike": text,
@@ -268,35 +415,70 @@ def main() -> None:
             with open(os.path.join(work, f"{name}.bin"), "wb") as fp:
                 fp.write(data.tobytes())
         del text, files
-        counters = (encode_blocks, decode_rows, histogram)
-        for fn in counters:
-            fn.launches = 0
-        for name in ("textlike", "random", "fib"):
+
+        def round_trip(name, tag, **kw):
+            """Port container == host writer's, both decode on the card to
+            the source; returns the port container's path."""
             src = os.path.join(work, f"{name}.bin")
-            dst, ref = src + ".hf2", src + ".ref.hf2"
-            out, out_ref = src + ".out", src + ".ref.out"
-            read_compress_write_hf2(src, dst, device=dev)
+            dst, ref = f"{src}.{tag}.hf2", f"{src}.{tag}.ref.hf2"
+            out, out_ref = dst + ".out", ref + ".out"
+            read_compress_write_hf2(src, dst, device=dev, **kw)
             read_decompress_write_hf2(dst, out, device=dev)
-            host_stream.read_compress_write_hf2(src, ref, device=False,
-                                                block_len=LANE, max_code_len=32)
+            read_compress_write_hf2_host(src, ref, block_len=LANE,
+                                         max_code_len=32, **kw)
             read_decompress_write_hf2(ref, out_ref, device=dev)
             if sha(dst) != sha(ref):
-                fail(f"{name}: port container differs from the host writer's")
+                fail(f"{name} ({tag}): port container differs from the host "
+                     "writer's")
             if not same_file(out, src) or not same_file(out_ref, src):
-                fail(f"{name}: device decode does not restore the source")
-            log(f"phase 4: {name}: {os.path.getsize(src)} B -> "
+                fail(f"{name} ({tag}): device decode does not restore the "
+                     "source")
+            log(f"phase 4: {name} ({tag}): {os.path.getsize(src)} B -> "
                 f"{os.path.getsize(dst)} B, sha256 {sha(dst)[:16]} == host "
                 f"writer's, decode restores the source")
-        torch.cuda.synchronize()
-        launches = {fn.__name__: fn.launches for fn in counters}
-        log(f"phase 4: launches during the main path: {launches}")
-        if not all(launches.values()):
-            fail(f"a kernel of the main path never launched: {launches}")
+            return dst
+
+        # (a) canonical containers: K1, K2, K3
+        reset()
+        for name in ("textlike", "random", "fib"):
+            round_trip(name, "canonical")
+        launches = read()
+        log(f"phase 4a: launches during the canonical path: {launches}")
+        if not all(launches[fn.__name__] for fn in
+                   (encode_blocks, decode_rows, histogram)):
+            fail(f"a kernel of the canonical path never launched: {launches}")
+        # (b) non-canonical containers: K4.  The Fibonacci file's own tree
+        # is length-limited, hence canonical by construction, so its
+        # canonical=False container decodes with K2; under its mirrored
+        # tree (32-bit codes, not canonical) it takes K4.
+        fib_src = os.path.join(work, "fib.bin")
+        fib_mirror = general_tree_of(np.fromfile(fib_src, dtype=np.uint8))
+        reset()
+        for name, tag, kw, want_k2 in (
+                ("textlike", "general", {"canonical": False}, False),
+                ("fib", "general", {"canonical": False}, True),
+                ("fib", "mirrored", {"canonical": False, "tree": fib_mirror},
+                 False)):
+            before = read()
+            round_trip(name, tag, **kw)
+            after = read()
+            k2 = after["decode_rows"] - before["decode_rows"]
+            k4 = after["decode_rows_general"] - before["decode_rows_general"]
+            log(f"phase 4b: {name} ({tag}): decode launches K2 {k2}, K4 {k4}")
+            if (k2 > 0) != want_k2 or (k4 > 0) == want_k2:
+                fail(f"{name} ({tag}): wrong decoder (K2 {k2}, K4 {k4})")
+        launches_b = read()
+        log(f"phase 4b: launches during the non-canonical path: {launches_b}")
+        if not launches_b["decode_rows_general"]:
+            fail("decode_rows_general never launched on the main path")
+        launches["decode_rows_general"] = launches_b["decode_rows_general"]
 
         # -- phase 5: rates --------------------------------------------------
         src = os.path.join(work, "textlike.bin")
+        gen = src + ".general.hf2"
         size = os.path.getsize(src)
         best = {"port compress": [], "port decompress": [],
+                "port decompress, non-canonical (K4)": [],
                 "host compress": [], "host decompress": []}
         for _ in range(3):
             t0 = time.perf_counter()
@@ -304,12 +486,15 @@ def main() -> None:
             t1 = time.perf_counter()
             read_decompress_write_hf2(src + ".p", src + ".po", device=dev)
             t2 = time.perf_counter()
-            host_stream.read_compress_write_hf2(src, src + ".h", device=False,
-                                                block_len=LANE, max_code_len=32)
+            read_decompress_write_hf2(gen, src + ".go", device=dev)
             t3 = time.perf_counter()
-            host_stream.read_decompress_write_hf2(src + ".h", src + ".ho")
+            read_compress_write_hf2_host(src, src + ".h", block_len=LANE,
+                                         max_code_len=32)
             t4 = time.perf_counter()
-            for key, dt in zip(best, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            read_decompress_write_hf2_host(src + ".h", src + ".ho")
+            t5 = time.perf_counter()
+            for key, dt in zip(best, (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
+                                      t5 - t4)):
                 best[key].append(dt)
         a = torch.empty(size, dtype=torch.uint8, device=dev)
         b = torch.empty_like(a)
@@ -324,15 +509,26 @@ def main() -> None:
 
     if "jax" in sys.modules:
         fail("jax was imported")
-    sources = {"encode": ("tpuhuff_torch/csrc/encode.cu",
-                          "tpuhuff/kernels/pallas_encode2.py:210", encode_blocks),
-               "decode": ("tpuhuff_torch/csrc/decode.cu",
-                          "tpuhuff/kernels/pallas_decode.py:227", decode_rows),
-               "histogram": ("tpuhuff_torch/csrc/histogram.cu",
-                             "tpuhuff/kernels/pallas_histogram.py:139", histogram)}
+    jax_package = sorted(m for m in sys.modules
+                         if m == "tpuhuff" or m.startswith("tpuhuff."))
+    if jax_package:
+        fail(f"modules of the JAX package were imported: {jax_package}")
+    sources = {
+        "encode": ("tpuhuff_torch/csrc/encode.cu",
+                   "tpuhuff/kernels/pallas_encode2.py:210", encode_blocks),
+        "decode": ("tpuhuff_torch/csrc/decode.cu",
+                   "tpuhuff/kernels/pallas_decode.py:227", decode_rows),
+        "decode_general": ("tpuhuff_torch/csrc/decode_general.cu",
+                           "tpuhuff/kernels/pallas_decode.py:269",
+                           decode_rows_general),
+        "histogram": ("tpuhuff_torch/csrc/histogram.cu",
+                      "tpuhuff/kernels/pallas_histogram.py:139", histogram),
+    }
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[fn.__name__], "max_abs_err": errs[k],
-                "ms": timing[k][0], "plain_ms": timing[k][1]}
+                "ms": timing[k][0], "plain_ms": timing[k][1],
+                "bound_ms": bound[k], "bound_by": "bytes",
+                "library_ms": timing[k][2]}
                for k, (src, rep, fn) in sources.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,24 +2,28 @@
 
 Marked ``cuda``: without a GPU (or without nvcc) every test skips.  On a
 machine with an H100 run ``python -m pytest tests/test_torch_cuda.py``.
-This file imports no JAX, so it runs where JAX is not installed.
+This file imports nothing of JAX or of the JAX package, so it runs where
+JAX is not installed.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from tpuhuff.core.canonical import build_tree_for_device, canonicalize
-from tpuhuff.core.weights import ByteWeights
-
+from tpuhuff_torch.core.canonical import build_tree_for_device, canonicalize
+from tpuhuff_torch.core.tree import HuffTree
+from tpuhuff_torch.core.weights import ByteWeights
 from tpuhuff_torch.kernels import (
     decode_rows,
+    decode_rows_general,
+    decode_rows_general_reference,
     decode_rows_reference,
     encode_blocks,
     encode_blocks_reference,
     histogram,
     histogram_reference,
     make_canonical_decode_tables,
+    make_decode_tables,
     make_encode_tables,
 )
 
@@ -71,6 +75,41 @@ def test_decode_kernel_matches_plain(dev):
     want = decode_rows_reference(rows, bit0, bits, dtab, N)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("alphabet", [2, 40, 256])
+def test_decode_general_kernel_matches_plain(dev, alphabet):
+    """K4 on a non-canonical tree (the device tree, mirrored if canonical):
+    bit-exact against its plain version, on cut-short blocks and on rows of
+    random words, and the full blocks decode to their source."""
+    rng = np.random.default_rng(alphabet)
+    B, N = 3000, 256
+    data = (rng.zipf(1.3, (B, N)) % alphabet).astype(np.uint8)
+    tree = build_tree_for_device(
+        ByteWeights(np.bincount(data.reshape(-1), minlength=256)), 32)[0]
+    if make_canonical_decode_tables(tree) is not None:
+        tree = HuffTree(tree.right, tree.left, tree.letters, tree.weights,
+                        tree.root)
+    assert make_canonical_decode_tables(tree) is None
+    etab = make_encode_tables(*tree.encode_tables()).to(dev)
+    lanes = torch.from_numpy(data).to(dev)
+    words, bits, _ = encode_blocks(lanes, torch.full((B,), N, dtype=torch.int32,
+                                                     device=dev), etab)
+    rows = torch.nn.functional.pad(words, (0, 1))
+    bit0 = torch.zeros(B, dtype=torch.int32, device=dev)
+    gtab = make_decode_tables(tree).to(dev)
+    full = decode_rows_general(rows, bit0, bits, gtab, N)
+    torch.cuda.synchronize()
+    assert torch.equal(full, lanes)
+    bits[::3] = (bits[::3] - 5).clamp(min=0)  # cut some blocks short
+    noise = torch.from_numpy(rng.integers(0, 1 << 32, tuple(rows.shape),
+                                          dtype=np.uint64).astype(np.uint32)
+                             .view(np.int32)).to(dev)
+    for r in (rows, noise):
+        got = decode_rows_general(r, bit0, bits, gtab, N)
+        want = decode_rows_general_reference(r, bit0, bits, gtab, N)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("n", [1, 15, 4096 + 7, (8 << 20) + 5])

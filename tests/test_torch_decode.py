@@ -131,8 +131,10 @@ def test_decode_arbitrary_rows_match_pallas():
 
 
 def test_decode_hf2_device_on_cpu(tmp_path):
-    from tpuhuff.io.hff import read_hf2_header
+    """A JAX-written container, read by the port's own header reader."""
     from tpuhuff.io.stream import read_compress_write_hf2
+
+    from tpuhuff_torch.io.hff import read_hf2_header
 
     rng = np.random.default_rng(2)
     data = rng.integers(0, 30, 5000, dtype=np.uint8)

@@ -1,5 +1,6 @@
 """Structural guards of the tpuhuff_torch port: hand-written kernels only,
-no JAX anywhere in the package, a launch counter on every kernel wrapper."""
+no JAX and nothing of the JAX package anywhere in the port, a launch
+counter on every kernel wrapper."""
 
 import os
 import re
@@ -31,7 +32,28 @@ def test_no_library_kernel_or_jax_in_port(needle):
     assert not hits, f"{needle!r} found in {hits}"
 
 
-@pytest.mark.parametrize("kernel", ["encode", "decode", "histogram"])
+# an import of the JAX package (``tpuhuff`` or ``tpuhuff.x``), not of the port
+JAX_PACKAGE_IMPORT = re.compile(r"^\s*(from|import)\s+tpuhuff(\.|\s|$)",
+                                re.MULTILINE)
+
+
+def _python_files():
+    yield os.path.join(ROOT, "chip_smoke.py")
+    for path in _sources():
+        if path.endswith(".py"):
+            yield path
+
+
+@pytest.mark.parametrize("path", sorted(
+    os.path.relpath(p, ROOT) for p in _python_files()))
+def test_port_imports_nothing_of_the_jax_package(path):
+    text = open(os.path.join(ROOT, path), encoding="utf-8").read()
+    hits = [m.group(0).strip() for m in JAX_PACKAGE_IMPORT.finditer(text)]
+    assert not hits, f"{path} imports the JAX package: {hits}"
+
+
+@pytest.mark.parametrize("kernel", ["encode", "decode", "decode_general",
+                                    "histogram"])
 def test_cuda_sources_and_launch_counters(kernel):
     src = os.path.join(PKG, "csrc", f"{kernel}.cu")
     text = open(src, encoding="utf-8").read()
@@ -40,11 +62,14 @@ def test_cuda_sources_and_launch_counters(kernel):
     import tpuhuff_torch.kernels as k
 
     wrapper = {"encode": k.encode_blocks, "decode": k.decode_rows,
+               "decode_general": k.decode_rows_general,
                "histogram": k.histogram}[kernel]
     assert isinstance(wrapper.launches, int)
 
 
 def test_port_runs_without_jax():
+    """A canonical and a non-canonical round trip on the CPU load neither
+    JAX nor any module of the JAX package."""
     code = (
         "import sys, tempfile, os\n"
         f"sys.path.insert(0, {ROOT!r})\n"
@@ -56,11 +81,15 @@ def test_port_runs_without_jax():
         "data = np.random.default_rng(0).integers(0, 40, 3000, dtype=np.uint8)\n"
         "src, hf2, out = (os.path.join(d, n) for n in ('a', 'b', 'c'))\n"
         "open(src, 'wb').write(data.tobytes())\n"
-        "read_compress_write_hf2(src, hf2, device='cpu')\n"
-        "read_decompress_write_hf2(hf2, out, device='cpu')\n"
-        "assert open(out, 'rb').read() == data.tobytes()\n"
+        "for canonical in (True, False):\n"
+        "    read_compress_write_hf2(src, hf2, device='cpu', canonical=canonical)\n"
+        "    read_decompress_write_hf2(hf2, out, device='cpu')\n"
+        "    assert open(out, 'rb').read() == data.tobytes()\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
         "if m.startswith('jax'))\n"
+        "bad = sorted(m for m in sys.modules "
+        "if m == 'tpuhuff' or m.startswith('tpuhuff.'))\n"
+        "assert not bad, bad\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

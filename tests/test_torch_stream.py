@@ -9,13 +9,16 @@ import numpy as np
 import pytest
 
 from tpuhuff.core.canonical import canonicalize
-from tpuhuff.core.format import CompressError
 from tpuhuff.core.tree import HuffTree
 from tpuhuff.core.weights import ByteWeights
 from tpuhuff.io import stream as jax_stream
-from tpuhuff.io.stream import StreamError
 
+from tpuhuff_torch.core import canonical as port_canonical
+from tpuhuff_torch.core.format import CompressError
+from tpuhuff_torch.core.tree import HuffTree as PortTree
+from tpuhuff_torch.core.weights import ByteWeights as PortWeights
 from tpuhuff_torch.io import read_compress_write_hf2, read_decompress_write_hf2
+from tpuhuff_torch.io.host import StreamError
 
 
 def _data(n, seed):
@@ -65,20 +68,24 @@ def test_port_writer_options_byte_identical(tmp_path, opts):
     jax_stream.read_compress_write_hf2(src, dev, device=True, **kw)
     assert open(port, "rb").read() == open(dev, "rb").read()
     out = str(tmp_path / "p.out")
-    if opts.get("canonical", True):
-        read_decompress_write_hf2(port, out, device="cpu", chunk_bytes=64 * 1024)
-        assert open(out, "rb").read() == data.tobytes()
-    else:  # the general-tree device decoder is not ported yet
-        with pytest.raises(NotImplementedError):
-            read_decompress_write_hf2(port, out, device="cpu")
+    read_decompress_write_hf2(port, out, device="cpu", chunk_bytes=64 * 1024)
+    assert open(out, "rb").read() == data.tobytes()
+    if not opts.get("canonical", True):
+        # the general-tree decoder (K4) on a non-canonical tree: the same
+        # bytes as the JAX device route's decode of the same file
+        jax_out = str(tmp_path / "d.out")
+        jax_stream.read_decompress_write_hf2(dev, jax_out, device=True)
+        assert open(out, "rb").read() == open(jax_out, "rb").read()
 
 
 def test_port_writer_given_tree(tmp_path):
     src, data = _src(tmp_path, 50_000, seed=2)
     counts = np.bincount(data, minlength=256) + 1  # covers every byte
     tree = canonicalize(HuffTree.from_weights(ByteWeights(counts)))
+    port_tree = port_canonical.canonicalize(
+        PortTree.from_weights(PortWeights(counts)))
     port, dev = str(tmp_path / "p.hf2"), str(tmp_path / "d.hf2")
-    read_compress_write_hf2(src, port, device="cpu", tree=tree,
+    read_compress_write_hf2(src, port, device="cpu", tree=port_tree,
                             chunk_bytes=16 * 1024)
     jax_stream.read_compress_write_hf2(src, dev, device=True, tree=tree,
                                        chunk_bytes=16 * 1024)
@@ -89,7 +96,7 @@ def test_port_writer_missing_letter_raises(tmp_path):
     src, data = _src(tmp_path, 20_000, seed=3)
     present = np.bincount(data, minlength=256)
     present[int(data[-1])] = 0  # a tree that has no code for this byte
-    tree = HuffTree.from_weights(ByteWeights(present))
+    tree = PortTree.from_weights(PortWeights(present))
     with pytest.raises(CompressError):
         read_compress_write_hf2(src, str(tmp_path / "p.hf2"), device="cpu",
                                 tree=tree)

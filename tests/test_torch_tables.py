@@ -9,7 +9,7 @@ import torch
 
 import jax.numpy as jnp
 
-from tpuhuff.core.canonical import build_tree_for_device, canonicalize
+from tpuhuff.core import canonical as jax_canonical
 from tpuhuff.core.tree import HuffTree
 from tpuhuff.core.weights import ByteWeights
 from tpuhuff.dist import stitch_words as jax_stitch_words
@@ -18,6 +18,9 @@ from tpuhuff.kernels import decode as jax_decode
 from tpuhuff.kernels import encode as jax_encode
 
 import tpuhuff_torch.dist as port_dist
+from tpuhuff_torch.core import canonical as port_canonical
+from tpuhuff_torch.core.tree import HuffTree as PortTree
+from tpuhuff_torch.core.weights import ByteWeights as PortWeights
 from tpuhuff_torch.kernels import (
     DecodeTables,
     EncodeTables,
@@ -42,16 +45,20 @@ def _fib_counts() -> np.ndarray:
     return counts
 
 
-def _tree(alphabet, canonical=True) -> HuffTree:
+def _tree(alphabet, canonical=True, port=False):
+    """The JAX package's tree, or with ``port`` the port's tree built from
+    the same counts by the port's own copies."""
+    Tree, Weights, canon = ((PortTree, PortWeights, port_canonical) if port
+                            else (HuffTree, ByteWeights, jax_canonical))
     if alphabet == "fib":
-        tree, limited = build_tree_for_device(ByteWeights(_fib_counts()), 32)
+        tree, limited = canon.build_tree_for_device(Weights(_fib_counts()), 32)
         assert limited and tree.max_code_len() == 32
     else:
         rng = np.random.default_rng(7 + (alphabet if isinstance(alphabet, int) else 0))
         data = rng.integers(0, alphabet, 5000, dtype=np.uint8)
         data = (data.astype(np.int64) * 251 // max(alphabet, 1) % 256).astype(np.uint8)
-        tree = HuffTree.from_weights(ByteWeights.from_bytes(data))
-    return canonicalize(tree) if canonical else tree
+        tree = Tree.from_weights(Weights.from_bytes(data))
+    return canon.canonicalize(tree) if canonical else tree
 
 
 @pytest.mark.parametrize("canonical", [True, False])
@@ -73,7 +80,7 @@ def test_encode_tables_match_jax(alphabet, canonical):
 def test_decode_tables_match_jax(alphabet):
     tree = _tree(alphabet)
     ub, dd, perm4, ml = jax_decode.make_canonical_decode_tables(tree)
-    port = make_canonical_decode_tables(tree)
+    port = make_canonical_decode_tables(_tree(alphabet, port=True))
     carried = DecodeTables.from_numpy(np.asarray(ub), np.asarray(dd),
                                       np.asarray(perm4), ml)
     assert port.max_len == ml == tree.max_code_len()
@@ -89,7 +96,7 @@ def test_decode_tables_match_jax(alphabet):
 def test_decode_tables_reject_noncanonical():
     tree = _tree(17, canonical=False)
     assert jax_decode.make_canonical_decode_tables(tree) is None
-    assert make_canonical_decode_tables(tree) is None
+    assert make_canonical_decode_tables(_tree(17, False, port=True)) is None
 
 
 @pytest.mark.parametrize("alphabet", ALPHABETS)
@@ -124,13 +131,15 @@ def _payload_case(seed: int):
 
 @pytest.mark.parametrize("with_native", [True, False])
 def test_payload_to_lane_words_matches_jax(with_native, monkeypatch):
-    import tpuhuff.io.stream as host_stream
+    """The port's gather (always its own C++ runtime) against the JAX
+    package's, through that package's runtime or its numpy gather."""
+    import tpuhuff.native as jax_native
 
     payload, starts, ends = _payload_case(3)
+    if not with_native:
+        monkeypatch.setattr(jax_native, "available", lambda: False)
     want_rows, want_bit0 = jax_decode.payload_to_lane_words(payload, starts,
                                                             ends, 256)
-    if not with_native:
-        monkeypatch.setattr(host_stream, "_native", lambda: None)
     rows, bit0 = payload_to_lane_words(payload, starts, ends, 256)
     assert rows.dtype == np.uint32 and bit0.dtype == np.int32
     assert rows.shape == want_rows.shape
@@ -144,6 +153,10 @@ def test_payload_to_lane_words_matches_jax(with_native, monkeypatch):
 
 @pytest.mark.parametrize("with_native", [True, False])
 def test_stitch_words_matches_jax(with_native, monkeypatch):
+    """The port's stitch (always its own C++ runtime) against the JAX
+    package's, through that package's runtime or its Python big-int stitch."""
+    import tpuhuff.native as jax_native
+
     rng = np.random.default_rng(11)
     B, W = 29, 6
     bits = rng.integers(0, 32 * W + 1, B).astype(np.uint64)
@@ -156,9 +169,9 @@ def test_stitch_words_matches_jax(with_native, monkeypatch):
             keep = min(max(nb - 32 * w, 0), 32)
             mask = 0 if keep == 0 else ((0xFFFFFFFF << (32 - keep)) & 0xFFFFFFFF)
             words[b, w] = full[w] & np.uint32(mask)
-    want = jax_stitch_words(words, bits)
     if not with_native:
-        monkeypatch.setattr(port_dist, "_native", lambda: None)
+        monkeypatch.setattr(jax_native, "available", lambda: False)
+    want = jax_stitch_words(words, bits)
     assert port_dist.stitch_words(words, bits) == want
 
 

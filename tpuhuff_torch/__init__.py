@@ -1,13 +1,19 @@
 """tpuhuff_torch — the ``tpuhuff`` Huffman codec's device layer in PyTorch + CUDA.
 
-The port sits beside the JAX package and shares its host layers, which
-import no JAX: trees and canonical codes (:mod:`tpuhuff.core`), the
-``.hff``/``.hf2`` containers (:mod:`tpuhuff.io.hff`), the host stream helpers
-(:mod:`tpuhuff.io.stream`) and the C++ runtime (:mod:`tpuhuff.native`).  It
-owns what touches the device:
+The port sits beside the JAX package and imports nothing of it.  It keeps
+its own copies of the host layers it needs, laid out under the JAX
+package's names and writing the same bytes:
 
-* :mod:`tpuhuff_torch.kernels` — the CUDA kernels (encode, decode,
-  histogram), each with its plain PyTorch version;
+* :mod:`tpuhuff_torch.core` — bits, weights, trees, canonical codes;
+* :mod:`tpuhuff_torch.native` — the C++ host runtime, built with ``g++``
+  from the repository's ``cpp/huffc.cpp`` into ``tpuhuff_torch/_build/``;
+* :mod:`tpuhuff_torch.io.hff` and :mod:`tpuhuff_torch.io.host` — the
+  ``.hf2`` container, and the host writer and reader.
+
+It owns what touches the device:
+
+* :mod:`tpuhuff_torch.kernels` — the CUDA kernels (encode, canonical and
+  general-tree decode, histogram), each with its plain PyTorch version;
 * :mod:`tpuhuff_torch.dist` — host lane padding and bit stitch;
 * :mod:`tpuhuff_torch.io` — the ``.hf2`` device round trip.
 

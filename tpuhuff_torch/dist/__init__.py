@@ -9,8 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from tpuhuff.core.bits import calc_padding_bits
-from tpuhuff.io.stream import _native
+from .. import native
 
 __all__ = ["pad_to_blocks", "stitch_words"]
 
@@ -36,24 +35,9 @@ def stitch_words(words: np.ndarray, bits: np.ndarray) -> tuple[bytes, int]:
     """Bit-carry concatenation of per-lane word rows into one payload.
 
     ``words`` (B, W) u32 values, MSB-first; ``bits`` (B,) exact bit
-    lengths.  Returns ``(payload, padding_bits)``.  Uses the threaded C++
-    stitcher when the native runtime is available."""
+    lengths.  Returns ``(payload, padding_bits)``, through the threaded C++
+    stitcher of the port's host runtime."""
     words = np.asarray(words, dtype=np.uint32)
     rows = np.ascontiguousarray(words).astype(">u4").view(np.uint8)
     rows = rows.reshape(words.shape[0], words.shape[1] * 4)
-    bits = np.asarray(bits, dtype=np.uint64)
-    nat = _native()
-    if nat is not None:
-        return nat.stitch_blocks(rows, bits)
-    value = 0
-    total = 0
-    for b in range(rows.shape[0]):
-        nb = int(bits[b])
-        if nb == 0:
-            continue
-        chunk = int.from_bytes(rows[b].tobytes(), "big") >> (rows.shape[1] * 8 - nb)
-        value = (value << nb) | chunk
-        total += nb
-    pad = calc_padding_bits(total)
-    payload = (value << pad).to_bytes((total + pad) // 8, "big") if total else b""
-    return payload, pad
+    return native.stitch_blocks(rows, np.asarray(bits, dtype=np.uint64))

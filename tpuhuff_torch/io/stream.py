@@ -3,15 +3,16 @@
 Counterparts of the device routes of :func:`tpuhuff.io.stream.read_compress_write_hf2`
 and :func:`tpuhuff.io.stream.read_decompress_write_hf2`: the same arguments
 (``device`` names a torch device instead of a flag) and the same bytes.
-The container, tree, CRC and bit-sink code is the JAX package's host code,
-imported, not copied.
+The container, tree, CRC and bit-sink code is the port's own copy of the
+JAX package's host code (:mod:`tpuhuff_torch.io.hff`, :mod:`.host`).
 
 Compress: pass 1 histograms the file on the device (:func:`histogram`);
 the host builds the length-limited canonical tree and writes the prelude;
 pass 2 encodes 256-byte lanes on the device (:func:`encode_blocks`) while
 the host stitches, patches the block table and CRC column and writes the
 previous chunk.  Decompress gathers each group's block rows on the host,
-decodes them on the device (:func:`decode_rows`) and verifies the CRCs.
+decodes them on the device (:func:`decode_rows` for canonical codes,
+:func:`decode_rows_general` for any other tree) and verifies the CRCs.
 
 Pipelining: launches are asynchronous on the current CUDA stream, host
 buffers are pinned, copies are ``non_blocking``, and the only sync point is
@@ -21,43 +22,42 @@ the collect of the previous chunk (submit k+1, then collect k).
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
 
-from tpuhuff.core.canonical import build_tree_for_device, canonicalize
-from tpuhuff.core.format import CompressError
-from tpuhuff.core.tree import HuffTree
-from tpuhuff.core.weights import ByteWeights
-from tpuhuff.io import stream as host_stream
-from tpuhuff.io.hff import (
+from .. import native
+from ..core.canonical import build_tree_for_device, canonicalize
+from ..core.format import CompressError
+from ..core.tree import HuffTree
+from ..core.weights import ByteWeights
+from ..dist import pad_to_blocks, stitch_words
+from ..kernels import (
+    decoder_for,
+    encode_blocks,
+    histogram,
+    make_encode_tables,
+    payload_to_lane_words,
+)
+from .hff import (
     default_crc_every,
     hf2_table_width,
-    read_hf2_header,
     write_hf2_crc_slice,
     write_hf2_prelude,
     write_hf2_table_slice,
 )
-from tpuhuff.io.stream import (
+from .host import (
     DEVICE_HF2_BLOCK,
     _CHUNK,
     StreamError,
     _BitSink,
+    _block_bits,
+    _check_sizes,
     _CrcVerifier,
-    _crc_spans,
-    _native,
-    _now,
+    _read_header,
     _record_call,
-)
-
-from ..dist import pad_to_blocks, stitch_words
-from ..kernels import (
-    decode_rows,
-    encode_blocks,
-    histogram,
-    make_canonical_decode_tables,
-    make_encode_tables,
-    payload_to_lane_words,
+    read_decompress_write_hf2_host,
 )
 
 __all__ = ["read_compress_write_hf2", "read_decompress_write_hf2"]
@@ -255,7 +255,6 @@ def read_compress_write_hf2(
         # collected, stitched and written
         src.seek(0)
         submit = _device_block_encoder(tree, block_len, dev, staging)
-        nat = _native()
         sink = _BitSink(dst)
         bidx = 0
         left = size
@@ -268,16 +267,16 @@ def read_compress_write_hf2(
                 if piece:
                     data = np.frombuffer(piece, dtype=np.uint8)
                     left -= data.size
-                    crcs = (_crc_spans(data, span_bytes, nat)
+                    crcs = (native.crc32_blocks(data, span_bytes)
                             if crc_every else None)
-                    handle = (submit(data, k % 2), crcs, _now())
+                    handle = (submit(data, k % 2), crcs, time.perf_counter())
                     k += 1
                 else:
                     left = 0
             if pending is not None:
                 h, crcs_p, t0_p = pending
                 payload, nbits, bit_lens = submit.collect(h)
-                _record_call(stats, _now() - t0_p)
+                _record_call(stats, time.perf_counter() - t0_p)
                 write_hf2_table_slice(dst, table_off, width, bidx, bit_lens)
                 if crcs_p is not None:
                     write_hf2_crc_slice(dst, crc_off, bidx // crc_every, crcs_p)
@@ -287,20 +286,6 @@ def read_compress_write_hf2(
             if pending is None and left <= 0:
                 break
         sink.flush()
-
-
-def _read_header(src, src_path: str):
-    try:
-        return read_hf2_header(src)
-    except StreamError:
-        raise
-    except ValueError as e:
-        raise StreamError(f"{src_path!r}: {e}", "InvalidHeaderInfo") from None
-
-
-def _invalid(src_path: str) -> StreamError:
-    return StreamError(f"{src_path!r} stores invalid header information",
-                       "InvalidHeaderInfo")
 
 
 def read_decompress_write_hf2(
@@ -313,11 +298,12 @@ def read_decompress_write_hf2(
     ``tpuhuff.io.stream.read_decompress_write_hf2(..., device=True)``.
 
     As in the JAX device route, an empty file, a one-letter tree and
-    blocks longer than 2048 bytes go to the host decoder, which has no
-    per-block serial scan.  ``check`` verifies the CRC32 column, raising
-    ``StreamError(kind="CorruptData")`` on a mismatch.  A tree whose codes
-    are not canonical raises :class:`NotImplementedError` (its device
-    decoder is not ported yet).
+    blocks longer than 2048 bytes go to the host decoder
+    (:func:`read_decompress_write_hf2_host`), which has no per-block
+    serial scan.  Canonical codes, detected from the tree itself and not
+    from the container's flag, decode with :func:`decode_rows`; any other
+    tree with :func:`decode_rows_general`.  ``check`` verifies the CRC32
+    column, raising ``StreamError(kind="CorruptData")`` on a mismatch.
     """
     dev = _resolve(device)
     chunk = chunk_bytes if chunk_bytes is not None else _CHUNK
@@ -328,39 +314,27 @@ def read_decompress_write_hf2(
         if not on_host:
             _decode_groups(hdr, src, dst, src_path, dev, chunk, stats, check)
             return
-    host_stream.read_decompress_write_hf2(
-        src_path, dst_path, chunk_bytes=chunk_bytes, stats=stats, check=check)
+    read_decompress_write_hf2_host(src_path, dst_path, chunk_bytes=chunk_bytes,
+                                   check=check)
 
 
 def _decode_groups(hdr, src, dst, src_path: str, dev: torch.device,
                    chunk: int, stats: dict | None, check: bool) -> None:
     """The device branch of :func:`read_decompress_write_hf2`."""
-    # header self-consistency before any allocation sized from its fields
-    if (hdr.block_len == 0 or hdr.num_blocks == 0
-            or hdr.orig_len > hdr.num_blocks * hdr.block_len
-            or hdr.orig_len <= (hdr.num_blocks - 1) * hdr.block_len):
-        raise _invalid(src_path)
-    ends = hdr.end_bits.astype(np.uint64)
-    if ends.size and np.any(np.diff(ends.astype(np.int64)) < 0):
-        raise _invalid(src_path)
-    tables = make_canonical_decode_tables(hdr.tree)
-    if tables is None:
-        raise NotImplementedError(
-            f"{src_path!r}: device decode of a non-canonical tree is not "
-            "ported yet; decode it with tpuhuff.io.stream."
-            "read_decompress_write_hf2(device=False)")
+    _check_sizes(hdr, src_path)
+    starts, ends = _block_bits(hdr, src_path)
+    decode, tables = decoder_for(hdr.tree)
     tables = tables.to(dev)
     verifier = None
     if check and hdr.crcs is not None and hdr.crc_every:
         verifier = _CrcVerifier(hdr.crcs, hdr.crc_every * hdr.block_len,
-                                _native(), src_path)
+                                src_path)
 
     def emit(piece: np.ndarray) -> None:
         dst.write(piece)
         if verifier is not None:
             verifier.feed(piece)
 
-    starts = np.concatenate([[np.uint64(0)], ends[:-1]])
     B = hdr.num_blocks
     gsize = max(1024, chunk // hdr.block_len)  # blocks per group
     staging = _Staging(dev)
@@ -378,7 +352,7 @@ def _decode_groups(hdr, src, dst, src_path: str, dev: torch.device,
         ls = (starts[g0:g1] - np.uint64(byte_lo * 8)).astype(np.int64)
         le = (ends[g0:g1] - np.uint64(byte_lo * 8)).astype(np.int64)
         rows, bit0 = payload_to_lane_words(buf, ls, le, hdr.block_len)
-        out = decode_rows(
+        out = decode(
             staging.h2d(rows.view(np.int32), ("rows", slot)),
             staging.h2d(bit0, ("bit0", slot)),
             staging.h2d((le - ls).astype(np.int32), ("nbits", slot)),
@@ -391,13 +365,13 @@ def _decode_groups(hdr, src, dst, src_path: str, dev: torch.device,
     for k, g0 in enumerate(list(range(0, B, gsize)) + [None]):
         handle = None
         if g0 is not None:
-            handle = (submit_group(g0, k % 2), _now())
+            handle = (submit_group(g0, k % 2), time.perf_counter())
         if pending is not None:
             (out, last, done), t0 = pending
             if done is not None:
                 done.synchronize()
             out = out.numpy()
-            _record_call(stats, _now() - t0)
+            _record_call(stats, time.perf_counter() - t0)
             if last != hdr.block_len:
                 emit(out[:-1].reshape(-1))
                 emit(out[-1, :last])

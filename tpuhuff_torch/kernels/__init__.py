@@ -4,6 +4,8 @@
   Huffman words, exact bit counts and missing-letter counts;
 * :func:`decode_rows` (``csrc/decode.cu``) — canonical decode of
   independent ``.hf2`` blocks;
+* :func:`decode_rows_general` (``csrc/decode_general.cu``) — the same
+  decode for any prefix tree;
 * :func:`histogram` (``csrc/histogram.cu``) — exact 256-bin byte counts.
 
 A wrapper launches its kernel for CUDA tensors and runs its plain version
@@ -13,10 +15,15 @@ launches.  The kernels are compiled at first use, never at import.
 
 from .decode import (
     DecodeTables,
+    GeneralDecodeTables,
     decode_hf2_device,
     decode_rows,
+    decode_rows_general,
+    decode_rows_general_reference,
     decode_rows_reference,
+    decoder_for,
     make_canonical_decode_tables,
+    make_decode_tables,
     payload_to_lane_words,
 )
 from .encode import (
@@ -31,14 +38,19 @@ from .histogram import histogram, histogram_reference
 __all__ = [
     "DecodeTables",
     "EncodeTables",
+    "GeneralDecodeTables",
     "decode_hf2_device",
     "decode_rows",
+    "decode_rows_general",
+    "decode_rows_general_reference",
     "decode_rows_reference",
+    "decoder_for",
     "encode_blocks",
     "encode_blocks_reference",
     "histogram",
     "histogram_reference",
     "make_canonical_decode_tables",
+    "make_decode_tables",
     "make_encode_tables",
     "out_words",
     "payload_to_lane_words",

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``tpuhuff_torch/csrc/*.cu``).
 
-At first use the sources are compiled by ``nvcc`` for Hopper (``sm_90a``)
-into ONE shared library with a plain C interface, cached under
+At first use the sources are compiled by ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` process per source, all started together, and linked into ONE
+shared library with a plain C interface, cached under
 ``tpuhuff_torch/_build/`` by a hash of the sources and flags, and loaded
 with ``ctypes``.  A plain C interface builds in seconds; a source that
 includes PyTorch's headers would take minutes per build.
@@ -30,7 +31,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +43,9 @@ _SIGNATURES = {
     "tpuhuff_encode_lanes": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # rows, bit0, nbits, ub, dd, perm, out, B, W, block_len, max_len, stream
     "tpuhuff_decode_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # rows, bit0, nbits, thr, sym, len, out, B, W, block_len, stream
+    "tpuhuff_decode_rows_general": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _P],
     # data, n, out, stream
     "tpuhuff_hist256": [_P, _L, _P, _P],
 }
@@ -68,30 +72,48 @@ def _sources() -> list[str]:
 
 
 def _key(sources: list[str]) -> str:
+    """Hash of the flags, the sources and every header they may include,
+    so an edited header never reuses a stale library."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources:
+    headers = sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))
+    for path in sources + headers:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as fp:
             h.update(fp.read())
     return h.hexdigest()[:16]
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the first failure's output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        try:
+            _, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def _build(sources: list[str], target: str) -> None:
     global build_seconds
     os.makedirs(_BUILD, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        if r.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n{r.stderr}")
-        os.replace(tmp, target)  # atomic: a concurrent loader sees all or none
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=_BUILD) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(src) + ".o")
+                for src in sources]
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+              for src, obj in zip(sources, objs)])
+        lib_tmp = os.path.join(tmp, "lib.so")
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib_tmp, *objs]])
+        os.replace(lib_tmp, target)  # atomic: a concurrent loader sees all or none
     build_seconds = time.perf_counter() - t0
 
 

@@ -1,14 +1,22 @@
-"""Device decode: canonical prefix-code decode of independent blocks.
+"""Device decode: prefix-code decode of independent blocks.
 
-Counterpart of the canonical route of :func:`tpuhuff.kernels.decode.decode_rows_device`
-(``decode_blocks_pallas_canonical`` -> ``decode_rows_fused`` -> the Pallas
-kernel ``tpuhuff.kernels.pallas_decode._decode_kernel``).  The ``.hf2``
-block index makes every block an independent lane: ``rows`` (B, W) holds
-each block's payload words, ``bit0``/``nbits`` its start bit and bit count,
-and the output is (B, block_len) uint8, zero past each block's symbols.
+Counterpart of :func:`tpuhuff.kernels.decode.decode_rows_device` and its
+two Pallas kernels.  The ``.hf2`` block index makes every block an
+independent lane: ``rows`` (B, W) holds each block's payload words,
+``bit0``/``nbits`` its start bit and bit count, and the output is (B,
+block_len) uint8, zero past each block's symbols.  Two kernels map the
+next 32 bits to (symbol, code length):
 
-The table construction and the host row gather are the JAX package's, with the
-same arithmetic, so both packages feed their kernels identical operands.
+* :func:`decode_rows` (K2, ``csrc/decode.cu``) — the canonical ladder, for
+  trees whose codes are canonical (``tpuhuff.kernels.pallas_decode.
+  _decode_kernel``);
+* :func:`decode_rows_general` (K4, ``csrc/decode_general.cu``) — an
+  interval search over the sorted left-aligned leaf codes, for any prefix
+  tree (``tpuhuff.kernels.pallas_decode._decode_kernel_general``).
+
+:func:`decoder_for` picks one from the tree itself.  The table
+construction and the host row gather are the JAX package's, with the same
+arithmetic, so both packages feed their kernels identical operands.
 """
 
 from __future__ import annotations
@@ -18,18 +26,23 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tpuhuff.core.canonical import canonical_codes_from_lengths
-from tpuhuff.core.tree import HuffTree
-
+from .. import native
+from ..core.canonical import canonical_codes_from_lengths
+from ..core.tree import HuffTree
 from . import _build
 from .encode import as_i32
 
 __all__ = [
     "DecodeTables",
+    "GeneralDecodeTables",
     "make_canonical_decode_tables",
+    "make_decode_tables",
+    "decoder_for",
     "payload_to_lane_words",
     "decode_rows",
     "decode_rows_reference",
+    "decode_rows_general",
+    "decode_rows_general_reference",
     "decode_hf2_device",
 ]
 
@@ -121,6 +134,60 @@ def make_canonical_decode_tables(tree: HuffTree) -> DecodeTables | None:
     return DecodeTables.from_numpy(ub, dd, perm4, ml)
 
 
+@dataclass(frozen=True)
+class GeneralDecodeTables:
+    """Interval tables for any prefix tree: ``thr`` (256,) int32 bit
+    patterns of the u32 left-aligned leaf codes, ascending; ``sym`` and
+    ``len`` (256,) uint8 each leaf's byte and code length.  Entries past
+    the leaf count repeat the last leaf."""
+
+    thr: torch.Tensor
+    sym: torch.Tensor
+    len: torch.Tensor
+
+    def to(self, device) -> "GeneralDecodeTables":
+        return GeneralDecodeTables(self.thr.to(device), self.sym.to(device),
+                                   self.len.to(device))
+
+
+def make_decode_tables(tree: HuffTree) -> GeneralDecodeTables:
+    """Interval tables of any prefix tree (the construction of
+    :func:`tpuhuff.kernels.decode.make_decode_tables`, unpacked): leaf k in
+    left-to-right order has the k-th smallest left-aligned code, so the
+    leaves partition [0, 2^32) and ``count(thr <= window) - 1`` is the
+    leaf whose code starts the window.  Codes longer than 32 bits raise
+    :class:`OverflowError`."""
+    items = []
+    for letter, code in tree.read_codes().items():
+        if code.length > 32:
+            raise OverflowError("device decoder supports code lengths <= 32")
+        items.append((code.value << (32 - code.length), int(letter),
+                      code.length))
+    items.sort()
+    K = len(items)
+    thr = np.zeros(256, dtype=np.uint32)
+    sym = np.zeros(256, dtype=np.uint8)
+    lens = np.zeros(256, dtype=np.uint8)
+    thr[:K] = [a for a, _, _ in items]
+    sym[:K] = [s for _, s, _ in items]
+    lens[:K] = [l for _, _, l in items]
+    thr[K:], sym[K:], lens[K:] = thr[K - 1], sym[K - 1], lens[K - 1]
+    return GeneralDecodeTables(as_i32(thr), torch.from_numpy(sym),
+                               torch.from_numpy(lens))
+
+
+def decoder_for(tree: HuffTree):
+    """``(wrapper, tables)`` that decode ``tree``'s blocks: the canonical
+    ladder (:func:`decode_rows`) when its codes are canonical, detected
+    from the tree itself and not from a container's flag, else the
+    interval search (:func:`decode_rows_general`) — the choice of
+    :func:`tpuhuff.kernels.decode.decode_rows_device`."""
+    tables = make_canonical_decode_tables(tree)
+    if tables is not None:
+        return decode_rows, tables
+    return decode_rows_general, make_decode_tables(tree)
+
+
 def payload_to_lane_words(payload, start_bits: np.ndarray, end_bits: np.ndarray,
                           block_len: int) -> tuple[np.ndarray, np.ndarray]:
     """Slice a stitched payload into per-block u32 word rows (host).
@@ -129,10 +196,9 @@ def payload_to_lane_words(payload, start_bits: np.ndarray, end_bits: np.ndarray,
     ``(rows (B, W) uint32, bit0 (B,) int32)``, ``bit0`` the start bit inside
     the row; W covers the longest block plus one slack word, so the 2-word
     window never reads past the row.  Same layout as
-    :func:`tpuhuff.kernels.decode.payload_to_lane_words`.
+    :func:`tpuhuff.kernels.decode.payload_to_lane_words`; the gather is
+    the host runtime's threaded ``extract_rows``.
     """
-    from tpuhuff.io.stream import _native
-
     raw = (payload.view(np.uint8) if isinstance(payload, np.ndarray)
            else np.frombuffer(bytes(payload), dtype=np.uint8))
     nwords = (raw.size + 3) // 4 + 2  # whole words + slack for window overreach
@@ -142,18 +208,13 @@ def payload_to_lane_words(payload, start_bits: np.ndarray, end_bits: np.ndarray,
     start_w = (np.asarray(start_bits) // 32).astype(np.int64)
     end_w = ((np.asarray(end_bits) + 31) // 32).astype(np.int64)
     width = int(np.max(end_w - start_w + 1, initial=1)) + 1
-    nat = _native()
-    if nat is not None:
-        rows = nat.extract_rows(words, start_w.astype(np.uint64), width)
-    else:
-        idx = np.minimum(start_w[:, None] + np.arange(width)[None, :],
-                         words.size - 1)
-        rows = words[idx]
+    rows = native.extract_rows(words, start_w.astype(np.uint64), width)
     bit0 = (np.asarray(start_bits) - start_w * 32).astype(np.int32)
     return rows, bit0
 
 
 def _check_args(rows, bit0, nbits, tables, block_len):
+    """Operand checks of both decoders; returns ``(B, W)``."""
     if rows.dim() != 2:
         raise ValueError("rows must be (B, W) int32")
     B, W = rows.shape
@@ -163,10 +224,33 @@ def _check_args(rows, bit0, nbits, tables, block_len):
     _build.check_tensor(rows, "rows", torch.int32, (B, W), dev)
     _build.check_tensor(bit0, "bit0", torch.int32, (B,), dev)
     _build.check_tensor(nbits, "nbits", torch.int32, (B,), dev)
-    _build.check_tensor(tables.ub, "tables.ub", torch.int32, (32,), dev)
-    _build.check_tensor(tables.dd, "tables.dd", torch.int32, (32,), dev)
-    _build.check_tensor(tables.perm, "tables.perm", torch.uint8, (256,), dev)
+    if isinstance(tables, GeneralDecodeTables):
+        _build.check_tensor(tables.thr, "tables.thr", torch.int32, (256,), dev)
+        _build.check_tensor(tables.sym, "tables.sym", torch.uint8, (256,), dev)
+        _build.check_tensor(tables.len, "tables.len", torch.uint8, (256,), dev)
+    else:
+        _build.check_tensor(tables.ub, "tables.ub", torch.int32, (32,), dev)
+        _build.check_tensor(tables.dd, "tables.dd", torch.int32, (32,), dev)
+        _build.check_tensor(tables.perm, "tables.perm", torch.uint8, (256,),
+                            dev)
     return B, W
+
+
+def _windows(rows: torch.Tensor):
+    """The plain versions' window reader: ``window(cur)`` gives each
+    block's next 32 bits at bit ``cur`` (int64), words past W read as 0."""
+    B, W = rows.shape
+    words = torch.zeros((B, W + 2), dtype=torch.int64, device=rows.device)
+    words[:, :W] = rows.long() & _U32
+
+    def window(cur: torch.Tensor) -> torch.Tensor:
+        q = (cur >> 5).clamp(max=W)[:, None]
+        rr = cur & 31
+        w0 = words.gather(1, q)[:, 0]
+        w1 = words.gather(1, q + 1)[:, 0]
+        return ((w0 << rr) | (w1 >> (32 - rr))) & _U32
+
+    return window
 
 
 def decode_rows(rows: torch.Tensor, bit0: torch.Tensor, nbits: torch.Tensor,
@@ -202,9 +286,7 @@ def decode_rows_reference(rows: torch.Tensor, bit0: torch.Tensor,
     B, W = _check_args(rows, bit0, nbits, tables, block_len)
     dev = rows.device
     ml = tables.max_len
-    # two zero columns: words past W read as 0
-    words = torch.zeros((B, W + 2), dtype=torch.int64, device=dev)
-    words[:, :W] = rows.long() & _U32
+    window_at = _windows(rows)
     ub = (tables.ub.long() & _U32)[: ml - 1]
     dd = tables.dd.long()
     perm = tables.perm.long()
@@ -213,11 +295,7 @@ def decode_rows_reference(rows: torch.Tensor, bit0: torch.Tensor,
     limit = nbits.long()
     out = torch.zeros((B, block_len), dtype=torch.uint8, device=dev)
     for i in range(block_len):
-        q = (cur >> 5).clamp(max=W)[:, None]
-        rr = cur & 31
-        w0 = words.gather(1, q)[:, 0]
-        w1 = words.gather(1, q + 1)[:, 0]
-        window = ((w0 << rr) | (w1 >> (32 - rr))) & _U32
+        window = window_at(cur)
         ind = (window[:, None] >= ub[None, :]).long()
         ln = 1 + ind.sum(dim=1)
         delta = dd[0] + (ind * dd[None, 1:ml]).sum(dim=1)
@@ -230,19 +308,72 @@ def decode_rows_reference(rows: torch.Tensor, bit0: torch.Tensor,
     return out
 
 
+def decode_rows_general(rows: torch.Tensor, bit0: torch.Tensor,
+                        nbits: torch.Tensor, tables: GeneralDecodeTables,
+                        block_len: int) -> torch.Tensor:
+    """:func:`decode_rows` for any prefix tree: the same operands and
+    output, with :func:`make_decode_tables`' interval tables.
+
+    CUDA tensors launch the kernel (``csrc/decode_general.cu``); CPU
+    tensors take :func:`decode_rows_general_reference`."""
+    B, W = _check_args(rows, bit0, nbits, tables, block_len)
+    if rows.device.type == "cpu":
+        return decode_rows_general_reference(rows, bit0, nbits, tables,
+                                             block_len)
+    if rows.device.type != "cuda":
+        raise ValueError(f"unsupported device {rows.device}")
+    out = torch.empty((B, block_len), dtype=torch.uint8, device=rows.device)
+    _build.launch("tpuhuff_decode_rows_general", rows.device, rows.data_ptr(),
+                  bit0.data_ptr(), nbits.data_ptr(), tables.thr.data_ptr(),
+                  tables.sym.data_ptr(), tables.len.data_ptr(), out.data_ptr(),
+                  B, W, int(block_len))
+    decode_rows_general.launches += 1
+    return out
+
+
+decode_rows_general.launches = 0
+
+
+def decode_rows_general_reference(rows: torch.Tensor, bit0: torch.Tensor,
+                                  nbits: torch.Tensor,
+                                  tables: GeneralDecodeTables,
+                                  block_len: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`decode_rows_general` (any device):
+    one vectorised step over all blocks per output position, the leaf
+    found by ``searchsorted`` over the thresholds."""
+    B, W = _check_args(rows, bit0, nbits, tables, block_len)
+    dev = rows.device
+    window_at = _windows(rows)
+    thr = tables.thr.long() & _U32
+    sym = tables.sym.long()
+    lens = tables.len.long()
+    cur = bit0.long()
+    consumed = torch.zeros(B, dtype=torch.int64, device=dev)
+    limit = nbits.long()
+    out = torch.zeros((B, block_len), dtype=torch.uint8, device=dev)
+    for i in range(block_len):
+        # count(thr <= window) - 1; thr[0] is 0 for every full binary tree
+        idx = (torch.searchsorted(thr, window_at(cur), right=True) - 1
+               ).clamp(min=0)
+        ln = lens[idx]
+        active = consumed + ln <= limit
+        out[:, i] = torch.where(active, sym[idx], 0).to(torch.uint8)
+        ln = torch.where(active, ln, 0)
+        cur = cur + ln
+        consumed = consumed + ln
+    return out
+
+
 def decode_hf2_device(header, payload: bytes, device="cuda") -> bytes:
-    """Decode a whole canonical ``.hf2`` payload on ``device``; returns the
-    original bytes (counterpart of :func:`tpuhuff.kernels.decode.decode_hf2_device`
-    for canonical trees)."""
-    tables = make_canonical_decode_tables(header.tree)
-    if tables is None:
-        raise NotImplementedError(
-            "device decode of non-canonical trees is not ported yet")
+    """Decode a whole ``.hf2`` payload on ``device``; returns the original
+    bytes (counterpart of :func:`tpuhuff.kernels.decode.decode_hf2_device`,
+    with its choice of decoder, :func:`decoder_for`)."""
+    decode, tables = decoder_for(header.tree)
     ends = header.end_bits.astype(np.int64)
     starts = np.concatenate([[0], ends[:-1]])
     rows, bit0 = payload_to_lane_words(payload, starts, ends, header.block_len)
     device = torch.device(device)
-    out = decode_rows(
+    out = decode(
         as_i32(rows).to(device), torch.from_numpy(bit0).to(device),
         torch.from_numpy((ends - starts).astype(np.int32)).to(device),
         tables.to(device), header.block_len)
