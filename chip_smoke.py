@@ -9,19 +9,22 @@ toolkit (``nvcc``), ``g++`` and PyTorch built for CUDA:
 Phases (any failure exits non-zero and prints no result line):
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-2. build of the four CUDA kernels from ``tpuhuff_torch/csrc`` (one ``nvcc``
+2. build of the CUDA kernels from ``tpuhuff_torch/csrc`` (one ``nvcc``
    per source, side by side) and of the port's C++ host runtime
    (``cpp/huffc.cpp`` with ``g++``);
 3. each kernel against its plain PyTorch version on the card, bit-exact:
-   encode (K1) and canonical decode (K2) on textlike, uniform-random,
-   single-symbol and Fibonacci (32-bit code) inputs with ragged lanes and
-   missing letters; general-tree decode (K4) with non-canonical trees on
-   textlike at the main path's shape, 4 MiB uniform random, a 2-letter
-   alphabet, the Fibonacci file (32-bit codes), blocks cut short and rows
-   of random words that are not codes; histograms (K3) from 1 B to
-   100 MiB.  Kernel, plain and library-call times at the main path's shapes;
-4. the main path, ``tpuhuff_torch.io`` on the device, in two runs, each
-   with every launch count set to 0 just before it and read just after:
+   encode (K1), encode + histogram (K5, ``hist_data`` the lanes or a
+   distinct operand 3 bytes past a 16-byte boundary) and canonical decode
+   (K2) on textlike, uniform-random, single-symbol and Fibonacci (32-bit
+   code) inputs with ragged lanes and missing letters; K1 at lanes of 8 and
+   2 bytes (the shapes of the TPU's flat-layout kernel, K6); general-tree
+   decode (K4) with non-canonical trees on textlike at the main path's
+   shape, 4 MiB uniform random, a 2-letter alphabet, the Fibonacci file
+   (32-bit codes), blocks cut short and rows of random words that are not
+   codes; histograms (K3) from 1 B to 100 MiB.  Kernel, plain and
+   library-call times at the main path's shapes;
+4. the main paths, ``tpuhuff_torch.io`` on the device, each run with every
+   launch count set to 0 just before it and read just after:
    (a) canonical containers of 100 MiB of textlike data (seed 42), a
    16 MiB uniform-random file and the ~15 MB Fibonacci file: K1, K2, K3;
    (b) ``canonical=False`` containers of the textlike and Fibonacci files,
@@ -29,8 +32,16 @@ Phases (any failure exits non-zero and prints no result line):
    K2 where the tree is not canonical.  Each container must have the
    SHA-256 of the port's host C++ writer's (``block_len=256,
    max_code_len=32``), and each device decode must restore the source;
+   (c) config 4, a dataset of 6 drifting 100 MiB textlike shards: shared
+   mode (one tree; K1, K2, no K5, no K3), adaptive mode (a tree per shard
+   from the previous shard's histogram, counted by K5), and ``.hff``
+   shards; every container SHA-equal to the host writer's under the same
+   tree, every shard restored, adaptive ratio below the stale tree's;
+   (d) a 16 MiB uniform-random ``.hf2`` with ``block_len=1000`` (8-byte
+   lanes, the TPU's K6 route), SHA-equal to the host writer and restored;
 5. wall-clock rates of port compress and decompress (canonical and not)
-   beside the host C++ writer and reader and a device-to-device copy.
+   and of dataset compress (shared and adaptive) beside the host C++
+   writers and reader, and a device-to-device copy.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of JAX, and nothing of the JAX
@@ -50,6 +61,8 @@ import time
 
 MAIN_MB = 100          # config 2: 100 MiB of enwik-like text
 RANDOM_MB = 16
+SHARD_MB = 100         # config 4: 10 GB of shards cut to 6 x 100 MiB
+N_SHARDS = 6
 LANE = 256             # the device writer's default block_len
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM: 3.35 TB/s (NVIDIA's data sheet)
 
@@ -63,9 +76,9 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def make_textlike(n: int, np):
+def make_textlike(n: int, np, seed: int = 42):
     """Config 2's enwik-like bytes (the recipe of bench.py's make_textlike)."""
-    rng = np.random.default_rng(42)
+    rng = np.random.default_rng(seed)
     text = (
         b"the of and to in a is that it was for on are as with his they at "
         b"<page><title>Benchmark</title><revision><text xml:space=\"preserve\">"
@@ -76,6 +89,17 @@ def make_textlike(n: int, np):
     idx = rng.integers(0, n, n // 64)
     base[idx] = rng.integers(0, 256, idx.size, dtype=np.uint8)
     return base
+
+
+def make_shard(k: int, np):
+    """Config 4's shard k: textlike bytes (seed 42 + k) of which a random
+    k / N_SHARDS share is moved by 128 (mod 256).  Neighbouring shards are
+    alike and distant ones are not: the drift adaptive mode exists for."""
+    data = make_textlike(SHARD_MB << 20, np, seed=42 + k)
+    moved = np.random.default_rng(1000 + k).integers(
+        0, N_SHARDS, data.size, dtype=np.uint8) < k
+    data[moved] += np.uint8(128)
+    return data
 
 
 def make_fib(np):
@@ -156,8 +180,17 @@ def main() -> None:
     from tpuhuff_torch.core.canonical import build_tree_for_device, canonicalize
     from tpuhuff_torch.core.tree import HuffTree
     from tpuhuff_torch.core.weights import ByteWeights
-    from tpuhuff_torch.io import read_compress_write_hf2, read_decompress_write_hf2
+    from tpuhuff_torch.io import (
+        build_shared_tree,
+        compress_dataset,
+        decompress_dataset,
+        read_compress_write_hf2,
+        read_decompress_write_hf2,
+        tree_from_counts,
+    )
+    from tpuhuff_torch.io.hff import read_hf2_header
     from tpuhuff_torch.io.host import (
+        read_compress_write_host,
         read_compress_write_hf2_host,
         read_decompress_write_hf2_host,
     )
@@ -249,7 +282,21 @@ def main() -> None:
         # a tree of the bytes < 128 only: the random bytes >= 128 have no code
         "missing": (head, tree_of(head[head < 128])),
     }
-    errs = {"encode": 0, "decode": 0, "decode_general": 0, "histogram": 0}
+    rng_k5 = np.random.default_rng(5)  # the earlier phases keep their inputs
+    errs = {"encode": 0, "encode_hist": 0, "decode": 0, "decode_general": 0,
+            "histogram": 0}
+
+    def check_k5(name, lanes, valid, etab, hist):
+        """K5 against its plain version: words, bits, miss and counts."""
+        got = encode_blocks(lanes, valid, etab, hist_data=hist)
+        want = encode_blocks_reference(lanes, valid, etab, hist_data=hist)
+        torch.cuda.synchronize()
+        err = max(max_err(torch, g, w) for g, w in zip(got, want))
+        errs["encode_hist"] = max(errs["encode_hist"], err)
+        log(f"phase 3: encode_hist {name}: {lanes.shape[0]} lanes of "
+            f"{lanes.shape[1]} B, operand {hist.numel()} B at address % 16 "
+            f"= {hist.data_ptr() % 16}, err {err}")
+
     for name, (data, tree) in cases.items():
         tree = tree if tree is not None else tree_of(data)
         B = data.size // LANE
@@ -279,6 +326,33 @@ def main() -> None:
         log(f"phase 3: {name}: {B} lanes, max code {etab.max_len} bits, "
             f"encode err {err}, decode err {max_err(torch, out, plain)}, "
             f"missing {n_miss}")
+        check_k5(f"{name} (operand = the lanes)", lanes, valid, etab, lanes)
+        if name == "textlike":
+            # a distinct operand of B*N - 13 bytes, 3 bytes past a 16-byte
+            # boundary: the unaligned head and the ragged tail
+            other = torch.from_numpy(rng_k5.integers(
+                0, 256, lanes.numel() + 16, dtype=np.uint8)).to(dev)
+            check_k5(f"{name} (distinct operand)", lanes, valid, etab,
+                     other[3: 3 + lanes.numel() - 13])
+            del other
+
+    # K1 at lanes of 8 and 2 bytes: the shapes the TPU gave its flat-layout
+    # kernel (K6); here K1's kernel serves every power-of-two lane
+    for n_lane in (8, 2):
+        data = text[: 4 << 20].reshape(-1, n_lane)
+        lanes = torch.from_numpy(data).to(dev)
+        valid = torch.full((data.shape[0],), n_lane, dtype=torch.int32,
+                           device=dev)
+        valid[1::5] = torch.from_numpy(rng_k5.integers(
+            0, n_lane, valid[1::5].numel()).astype(np.int32)).to(dev)
+        etab = make_encode_tables(*tree_of(text).encode_tables()).to(dev)
+        got = encode_blocks(lanes, valid, etab)
+        want = encode_blocks_reference(lanes, valid, etab)
+        torch.cuda.synchronize()
+        err = max(max_err(torch, g, w) for g, w in zip(got, want))
+        errs["encode"] = max(errs["encode"], err)
+        log(f"phase 3: encode at lanes of {n_lane} B: {data.shape[0]} lanes, "
+            f"err {err}")
 
     # K4: non-canonical trees; full blocks must decode to their source
     rand4 = rng.integers(0, 256, 4 << 20, dtype=np.uint8)
@@ -355,6 +429,14 @@ def main() -> None:
                        s["lanes"], s["valid"], s["etab"])),
                    cuda_ms(torch, lambda: encode_blocks_reference(
                        s["lanes"], s["valid"], s["etab"]), reps=2), None),
+        # K5 with the adaptive path's operand, the lanes themselves; no one
+        # PyTorch call computes it (K1 + K3 is printed as the yardstick)
+        "encode_hist": (cuda_ms(torch, lambda: encode_blocks(
+                            s["lanes"], s["valid"], s["etab"],
+                            hist_data=s["lanes"])),
+                        cuda_ms(torch, lambda: encode_blocks_reference(
+                            s["lanes"], s["valid"], s["etab"],
+                            hist_data=s["lanes"]), reps=2), None),
         "decode": (cuda_ms(torch, lambda: decode_rows(
                        s["rows"], s["bit0"], s["nbits"], s["dtab"], LANE)),
                    cuda_ms(torch, lambda: decode_rows_reference(
@@ -377,6 +459,10 @@ def main() -> None:
     moved = {
         "encode": nbytes(s["lanes"], s["valid"], s["etab"].lens,
                          s["etab"].acodes, s["words"]) + 8 * main_lanes,
+        # the operand is the lanes, already counted: only the counts added
+        "encode_hist": nbytes(s["lanes"], s["valid"], s["etab"].lens,
+                              s["etab"].acodes, s["words"]) + 8 * main_lanes
+                       + 256 * 8,
         "decode": payload_bytes(s["bit0"], s["nbits"]) + 8 * main_lanes
                   + nbytes(s["dtab"].ub, s["dtab"].dd, s["dtab"].perm) + out_b,
         "decode_general": payload_bytes(s["bit0"], s["gnbits"])
@@ -391,19 +477,30 @@ def main() -> None:
             f"plain {plain_ms:.4f} ms, library "
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
             f"{bound[k]:.4f} ms ({moved[k]} B at 3.35 TB/s) [{card}]")
+    distinct = (moved["encode_hist"] + s["lanes"].numel()) / HBM_BYTES_PER_MS
+    log(f"phase 3: encode_hist beside its unfused yardstick: K5 "
+        f"{timing['encode_hist'][0]:.4f} ms, K1 + K3 "
+        f"{timing['encode'][0] + timing['histogram'][0]:.4f} ms (K1 "
+        f"{timing['encode'][0]:.4f} + K3 {timing['histogram'][0]:.4f} on "
+        f"{hist_chunk.numel()} B); bound {distinct:.4f} ms were the operand "
+        f"a distinct tensor of the same size [{card}]")
     del s, lanes, valid, words, rows, grows, text_dev, hist_chunk
     torch.cuda.synchronize()
 
-    # -- phase 4: the main path ----------------------------------------------
-    counters = (encode_blocks, decode_rows, decode_rows_general, histogram)
+    # -- phase 4: the main paths ---------------------------------------------
+    counters = {"encode": (encode_blocks, "launches"),
+                "encode_hist": (encode_blocks, "hist_launches"),
+                "decode": (decode_rows, "launches"),
+                "decode_general": (decode_rows_general, "launches"),
+                "histogram": (histogram, "launches")}
 
     def reset():
-        for fn in counters:
-            fn.launches = 0
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
 
     def read():
         torch.cuda.synchronize()
-        return {fn.__name__: fn.launches for fn in counters}
+        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
 
     work = tempfile.mkdtemp(prefix="tpuhuff_chip_smoke_")
     try:
@@ -424,8 +521,8 @@ def main() -> None:
             out, out_ref = dst + ".out", ref + ".out"
             read_compress_write_hf2(src, dst, device=dev, **kw)
             read_decompress_write_hf2(dst, out, device=dev)
-            read_compress_write_hf2_host(src, ref, block_len=LANE,
-                                         max_code_len=32, **kw)
+            read_compress_write_hf2_host(
+                src, ref, **{"block_len": LANE, "max_code_len": 32, **kw})
             read_decompress_write_hf2(ref, out_ref, device=dev)
             if sha(dst) != sha(ref):
                 fail(f"{name} ({tag}): port container differs from the host "
@@ -444,8 +541,7 @@ def main() -> None:
             round_trip(name, "canonical")
         launches = read()
         log(f"phase 4a: launches during the canonical path: {launches}")
-        if not all(launches[fn.__name__] for fn in
-                   (encode_blocks, decode_rows, histogram)):
+        if not all(launches[k] for k in ("encode", "decode", "histogram")):
             fail(f"a kernel of the canonical path never launched: {launches}")
         # (b) non-canonical containers: K4.  The Fibonacci file's own tree
         # is length-limited, hence canonical by construction, so its
@@ -462,16 +558,107 @@ def main() -> None:
             before = read()
             round_trip(name, tag, **kw)
             after = read()
-            k2 = after["decode_rows"] - before["decode_rows"]
-            k4 = after["decode_rows_general"] - before["decode_rows_general"]
+            k2 = after["decode"] - before["decode"]
+            k4 = after["decode_general"] - before["decode_general"]
             log(f"phase 4b: {name} ({tag}): decode launches K2 {k2}, K4 {k4}")
             if (k2 > 0) != want_k2 or (k4 > 0) == want_k2:
                 fail(f"{name} ({tag}): wrong decoder (K2 {k2}, K4 {k4})")
         launches_b = read()
         log(f"phase 4b: launches during the non-canonical path: {launches_b}")
-        if not launches_b["decode_rows_general"]:
+        if not launches_b["decode_general"]:
             fail("decode_rows_general never launched on the main path")
-        launches["decode_rows_general"] = launches_b["decode_rows_general"]
+        launches["decode_general"] = launches_b["decode_general"]
+
+        # (c) config 4: a dataset of drifting shards
+        srcs = []
+        for k in range(N_SHARDS):
+            path = os.path.join(work, f"shard{k}.bin")
+            make_shard(k, np).tofile(path)
+            srcs.append(path)
+
+        def tree_bin(path):
+            with open(path, "rb") as fp:
+                return read_hf2_header(fp).tree.as_bin().to_bytes()
+
+        def dataset_run(mode, **kw):
+            """compress_dataset + decompress_dataset on the card, counted;
+            every shard must be restored.  Returns (outputs, stats,
+            launches)."""
+            stats = {}
+            reset()
+            outs = compress_dataset(srcs[: kw.pop("n", N_SHARDS)],
+                                    out_dir=os.path.join(work, mode),
+                                    device=dev, stats=stats, **kw)
+            decs = decompress_dataset(outs, out_dir=os.path.join(work, mode,
+                                                                 "dec"),
+                                      device=dev)
+            counts = read()
+            for src, dec in zip(srcs, decs):
+                if not same_file(dec, src):
+                    fail(f"4c {mode}: {dec} does not restore {src}")
+                os.unlink(dec)
+            log(f"phase 4c: {mode}: {len(outs)} shards, {stats}, launches "
+                f"{counts}, every shard restored on the card")
+            return outs, stats, counts
+
+        def same_as_host(mode, outs, trees, writer):
+            """Each container's SHA-256 == the host writer's under the
+            same tree; then the mode's outputs go."""
+            for k, (dst, tree) in enumerate(zip(outs, trees)):
+                ref = dst + ".ref"
+                writer(srcs[k], ref, tree)
+                if sha(dst) != sha(ref):
+                    fail(f"4c {mode}: shard {k} differs from the host writer's")
+                os.unlink(ref)
+            log(f"phase 4c: {mode}: {len(outs)} containers sha256-equal to "
+                f"the host writer's under the same trees")
+            shutil.rmtree(os.path.join(work, mode))
+
+        def host_hf2(src, dst, tree):
+            read_compress_write_hf2_host(src, dst, block_len=LANE, tree=tree)
+
+        # (i) shared mode: one tree; K1 and K2, and no K5 or K3
+        outs, stats, counts = dataset_run("shared")
+        if stats["tree_builds"] != 1 or len({tree_bin(p) for p in outs}) != 1:
+            fail(f"4c shared: not one tree for the dataset: {stats}")
+        if not (counts["encode"] and counts["decode"]) or (
+                counts["encode_hist"] or counts["histogram"]):
+            fail(f"4c shared: wrong kernels {counts}")
+        same_as_host("shared", outs, [build_shared_tree(srcs)] * N_SHARDS,
+                     host_hf2)
+        # (ii) adaptive mode: shard k's tree from shard k-1's counts (K5)
+        outs, astats, counts = dataset_run("adaptive", adaptive=True)
+        launches["encode_hist"] = counts["encode_hist"]
+        if astats["tree_builds"] != N_SHARDS or not counts["encode_hist"]:
+            fail(f"4c adaptive: {astats}, launches {counts}")
+        trees = [build_shared_tree(srcs[:1])] + [
+            tree_from_counts(native.hist(np.fromfile(src, dtype=np.uint8)),
+                             device=True) for src in srcs[:-1]]
+        same_as_host("adaptive", outs, trees, host_hf2)
+        stale = {}
+        compress_dataset(srcs, out_dir=os.path.join(work, "stale"),
+                         tree_from=srcs[0], device=dev, stats=stale)
+        shutil.rmtree(os.path.join(work, "stale"))
+        log(f"phase 4c: ratio adaptive {astats['ratio']:.6f}, shared "
+            f"{stats['ratio']:.6f}, stale (shard 0's tree) "
+            f"{stale['ratio']:.6f}")
+        if not astats["ratio"] < stale["ratio"]:
+            fail("4c: the adaptive ratio is not below the stale tree's")
+        # (iii) .hff shards under one shared tree: K1
+        outs, _, counts = dataset_run("hff", hf2=False, n=2)
+        if not counts["encode"]:
+            fail(f"4c hff: K1 never launched: {counts}")
+        same_as_host("hff", outs, [build_shared_tree(srcs[:2])] * 2,
+                     lambda src, dst, tree: read_compress_write_host(
+                         src, dst, tree=tree))
+
+        # (d) 8-byte lanes (block_len 1000): the TPU's flat-layout route, K6
+        reset()
+        round_trip("random", "block1000", block_len=1000)
+        counts = read()
+        log(f"phase 4d: block_len 1000 (lanes of 8 B): launches {counts}")
+        if not counts["encode"]:
+            fail("4d: K1 never launched at 8-byte lanes")
 
         # -- phase 5: rates --------------------------------------------------
         src = os.path.join(work, "textlike.bin")
@@ -504,6 +691,47 @@ def main() -> None:
                 f"best of {len(dts)} on {size} B [{card}]")
         log(f"phase 5: device-to-device copy_: {size / copy_ms / 1e6:.2f} GB/s "
             f"({copy_ms:.4f} ms for {size} B) [{card}]")
+        del a, b
+
+        # dataset compress, tree builds included, beside the host writer
+        # doing the same work: one sampled tree, or a tree per shard from
+        # the previous shard's counts (the host writer's collect_hist)
+        out_dir = os.path.join(work, "rates")
+        os.makedirs(out_dir)
+        dst = os.path.join(out_dir, "x.hf2")
+
+        def host_shared():
+            tree = build_shared_tree(srcs)
+            for src in srcs:
+                host_hf2(src, dst, tree)
+
+        def host_adaptive():
+            tree = build_shared_tree(srcs[:1])
+            for k, src in enumerate(srcs):
+                hist = read_compress_write_hf2_host(
+                    src, dst, block_len=LANE, tree=tree,
+                    collect_hist=k + 1 < N_SHARDS)
+                if hist is not None:
+                    tree = tree_from_counts(hist)
+
+        runs = {
+            "port dataset compress, shared": lambda: compress_dataset(
+                srcs, out_dir=out_dir, device=dev),
+            "host dataset compress, shared": host_shared,
+            "port dataset compress, adaptive (K5)": lambda: compress_dataset(
+                srcs, out_dir=out_dir, device=dev, adaptive=True),
+            "host dataset compress, adaptive": host_adaptive,
+        }
+        dts = {key: [] for key in runs}
+        for _ in range(2):
+            for key, run in runs.items():
+                t0 = time.perf_counter()
+                run()
+                dts[key].append(time.perf_counter() - t0)
+        total = sum(os.path.getsize(p) for p in srcs)
+        for key, d in dts.items():
+            log(f"phase 5: {key}: {total / min(d) / 1e9:.4f} GB/s wall, best "
+                f"of {len(d)} on {total} B ({N_SHARDS} shards) [{card}]")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -515,21 +743,24 @@ def main() -> None:
         fail(f"modules of the JAX package were imported: {jax_package}")
     sources = {
         "encode": ("tpuhuff_torch/csrc/encode.cu",
-                   "tpuhuff/kernels/pallas_encode2.py:210", encode_blocks),
+                   "tpuhuff/kernels/pallas_encode2.py:210 (fused, call :545); "
+                   "K6 :169 (flat, call :412); K7 :169 (cell, call :599)"),
+        "encode_hist": ("tpuhuff_torch/csrc/encode.cu",
+                        "tpuhuff/kernels/pallas_encode2.py:210 "
+                        "(with_hist, :314-332)"),
         "decode": ("tpuhuff_torch/csrc/decode.cu",
-                   "tpuhuff/kernels/pallas_decode.py:227", decode_rows),
+                   "tpuhuff/kernels/pallas_decode.py:227"),
         "decode_general": ("tpuhuff_torch/csrc/decode_general.cu",
-                           "tpuhuff/kernels/pallas_decode.py:269",
-                           decode_rows_general),
+                           "tpuhuff/kernels/pallas_decode.py:269"),
         "histogram": ("tpuhuff_torch/csrc/histogram.cu",
-                      "tpuhuff/kernels/pallas_histogram.py:139", histogram),
+                      "tpuhuff/kernels/pallas_histogram.py:139"),
     }
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[fn.__name__], "max_abs_err": errs[k],
+                "launches": launches[k], "max_abs_err": errs[k],
                 "ms": timing[k][0], "plain_ms": timing[k][1],
                 "bound_ms": bound[k], "bound_by": "bytes",
                 "library_ms": timing[k][2]}
-               for k, (src, rep, fn) in sources.items()]
+               for k, (src, rep) in sources.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,7 +42,7 @@ def _tree(data):
     return canonicalize(build_tree_for_device(ByteWeights(counts), 32)[0])
 
 
-@pytest.mark.parametrize("N", [1, 16, 256, 1024])
+@pytest.mark.parametrize("N", [1, 2, 8, 16, 256, 1024])
 def test_encode_kernel_matches_plain(dev, N):
     rng = np.random.default_rng(N)
     B = 1000
@@ -53,6 +53,35 @@ def test_encode_kernel_matches_plain(dev, N):
     got = encode_blocks(lanes, valid, tables)
     want = encode_blocks_reference(lanes, valid, tables)
     torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("N", [8, 256])
+@pytest.mark.parametrize("operand", ["lanes", "unaligned"])
+def test_encode_hist_kernel_matches_plain(dev, N, operand):
+    """K5: K1's results and the exact counts of ``hist_data``, which is the
+    lanes themselves or a shorter operand 3 bytes past a 16-byte boundary."""
+    rng = np.random.default_rng(N + len(operand))
+    B = 3000
+    data = rng.zipf(1.3, (B, N)).clip(0, 255).astype(np.uint8)
+    tables = make_encode_tables(*_tree(data.reshape(-1)).encode_tables()).to(dev)
+    valid = torch.from_numpy(rng.integers(0, N + 1, B).astype(np.int32)).to(dev)
+    lanes = torch.from_numpy(data).to(dev)
+    if operand == "lanes":
+        hist = lanes
+    else:
+        buf = torch.from_numpy(rng.integers(0, 256, B * N + 16,
+                                            dtype=np.uint8)).to(dev)
+        hist = buf[3: 3 + B * N - 13]
+        assert hist.data_ptr() % 16 == 3
+    before = encode_blocks.hist_launches, encode_blocks.launches
+    got = encode_blocks(lanes, valid, tables, hist_data=hist)
+    want = encode_blocks_reference(lanes, valid, tables, hist_data=hist)
+    torch.cuda.synchronize()
+    assert (encode_blocks.hist_launches, encode_blocks.launches) == (
+        before[0] + 1, before[1])
+    assert len(got) == len(want) == 4
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 

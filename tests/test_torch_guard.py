@@ -52,24 +52,32 @@ def test_port_imports_nothing_of_the_jax_package(path):
     assert not hits, f"{path} imports the JAX package: {hits}"
 
 
-@pytest.mark.parametrize("kernel", ["encode", "decode", "decode_general",
-                                    "histogram"])
+@pytest.mark.parametrize("kernel", ["encode", "encode_hist", "decode",
+                                    "decode_general", "histogram"])
 def test_cuda_sources_and_launch_counters(kernel):
-    src = os.path.join(PKG, "csrc", f"{kernel}.cu")
-    text = open(src, encoding="utf-8").read()
+    """Each kernel has its CUDA source, with the note on the TPU kernel it
+    replaces, and a launch counter of its own (K5 shares K1's source and
+    wrapper, and counts in ``encode_blocks.hist_launches``)."""
+    source = {"encode_hist": "encode"}.get(kernel, kernel)
+    text = open(os.path.join(PKG, "csrc", f"{source}.cu"),
+                encoding="utf-8").read()
     assert re.search(r"__global__", text)
     assert "Replaces tpuhuff/kernels/pallas_" in text  # the note on its origin
     import tpuhuff_torch.kernels as k
 
-    wrapper = {"encode": k.encode_blocks, "decode": k.decode_rows,
-               "decode_general": k.decode_rows_general,
-               "histogram": k.histogram}[kernel]
-    assert isinstance(wrapper.launches, int)
+    wrapper, counter = {
+        "encode": (k.encode_blocks, "launches"),
+        "encode_hist": (k.encode_blocks, "hist_launches"),
+        "decode": (k.decode_rows, "launches"),
+        "decode_general": (k.decode_rows_general, "launches"),
+        "histogram": (k.histogram, "launches")}[kernel]
+    assert isinstance(getattr(wrapper, counter), int)
 
 
 def test_port_runs_without_jax():
-    """A canonical and a non-canonical round trip on the CPU load neither
-    JAX nor any module of the JAX package."""
+    """A canonical and a non-canonical round trip, an adaptive dataset and
+    a ``.hff`` round trip on the CPU load neither JAX nor any module of the
+    JAX package."""
     code = (
         "import sys, tempfile, os\n"
         f"sys.path.insert(0, {ROOT!r})\n"
@@ -85,6 +93,13 @@ def test_port_runs_without_jax():
         "    read_compress_write_hf2(src, hf2, device='cpu', canonical=canonical)\n"
         "    read_decompress_write_hf2(hf2, out, device='cpu')\n"
         "    assert open(out, 'rb').read() == data.tobytes()\n"
+        "from tpuhuff_torch.io import compress_dataset, decompress_dataset\n"
+        "outs = compress_dataset([src, src], dsts=[hf2, hf2 + 'x'], "
+        "adaptive=True, device='cpu')\n"
+        "outs += compress_dataset([src], dsts=[hf2 + '.hff'], hf2=False, "
+        "device='cpu')\n"
+        "for dec in decompress_dataset(outs, dsts=[out] * 3, device='cpu'):\n"
+        "    assert open(dec, 'rb').read() == data.tobytes()\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
         "if m.startswith('jax'))\n"
         "bad = sorted(m for m in sys.modules "

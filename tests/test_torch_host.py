@@ -1,6 +1,7 @@
 """The port's host ``.hf2`` writer and reader (``tpuhuff_torch.io.host``)
 against ``tpuhuff.io.stream``'s host route (``device=False``): the same
-container bytes, and exact round trips both ways.
+container bytes, the same ``collect_hist`` counts, exact round trips both
+ways, and pass 1 sampling the same bytes as the JAX writers.
 """
 
 import numpy as np
@@ -15,6 +16,8 @@ from tpuhuff_torch.core.weights import ByteWeights
 from tpuhuff_torch.io import read_decompress_write_hf2
 from tpuhuff_torch.io.host import (
     StreamError,
+    _chunk_step,
+    _sampled_pieces,
     read_compress_write_hf2_host,
     read_decompress_write_hf2_host,
 )
@@ -146,3 +149,58 @@ def test_host_reader_rejects_bad_header(tmp_path):
     with pytest.raises(StreamError) as err:
         read_decompress_write_hf2_host(str(bad), str(tmp_path / "o"))
     assert err.value.kind == "InvalidHeaderInfo"
+
+
+@pytest.mark.parametrize("opts", [
+    {},
+    {"block_len": 4096, "chunk_bytes": 1 << 16},
+    {"block_len": 1000, "chunk_bytes": 50_000, "check": False},
+])
+def test_host_writer_collect_hist(tmp_path, opts):
+    """Config 4's ``collect_hist``: the histogram counted during pass 2 is
+    exact and equal to the JAX host writer's, and the bytes do not move."""
+    data = _textlike(400_003, 5)
+    src = tmp_path / "src.bin"
+    src.write_bytes(data.tobytes())
+    port, jax, plain = (str(tmp_path / f"{k}.hf2") for k in "pjq")
+    hist = read_compress_write_hf2_host(str(src), port, collect_hist=True,
+                                        **opts)
+    jhist = jax_writer_host(str(src), jax, collect_hist=True, **opts)
+    assert np.array_equal(hist, np.bincount(data, minlength=256))
+    assert np.array_equal(hist, jhist)
+    assert read_compress_write_hf2_host(str(src), plain, **opts) is None
+    assert open(port, "rb").read() == open(jax, "rb").read()
+    assert open(port, "rb").read() == open(plain, "rb").read()
+
+
+def test_pass1_samples_as_the_jax_writers(tmp_path):
+    """A 257 MiB file with ``chunk_bytes=512 MiB, hist_sample=8``: pass 1
+    reads pieces of at most 256 MiB, as both JAX writers do, and counts
+    the first eighth of each: ``[0, 32 MiB)`` and ``[256, 256.125 MiB)``.
+    Sampling the whole 512 MiB step would count ``[0, 32.125 MiB)``."""
+    mib = 1 << 20
+    size = 257 * mib
+    path = tmp_path / "big.bin"
+    with open(path, "wb") as fp:  # sparse: zeros cost no writes
+        fp.truncate(size)
+        fp.seek(32 * mib)
+        fp.write(b"\x01" * (mib // 8))  # sampled only by the whole step
+        fp.seek(256 * mib)
+        fp.write(b"\x02" * (mib // 8))  # sampled only per 256 MiB piece
+    step = _chunk_step(256, 512 << 20, True)[0]
+    assert step == 512 << 20
+    data = np.memmap(path, dtype=np.uint8, mode="r")
+    want = np.zeros(256, dtype=np.int64)  # the JAX rule
+    for off in range(0, size, 256 * mib):
+        piece = data[off: off + 256 * mib]
+        want += np.bincount(piece[: max(1, piece.size // 8)], minlength=256)
+    whole_step = np.bincount(data[: size // 8], minlength=256)
+    assert not np.array_equal(want, whole_step)
+    got = np.zeros(256, dtype=np.int64)
+    with open(path, "rb") as fp:
+        for piece in _sampled_pieces(fp, size, step, 8):
+            got += np.bincount(np.frombuffer(piece, dtype=np.uint8),
+                               minlength=256)
+    del data
+    path.unlink()
+    assert np.array_equal(got, want)

@@ -12,15 +12,34 @@ package's names and writing the same bytes:
 
 It owns what touches the device:
 
-* :mod:`tpuhuff_torch.kernels` — the CUDA kernels (encode, canonical and
-  general-tree decode, histogram), each with its plain PyTorch version;
+* :mod:`tpuhuff_torch.kernels` — the CUDA kernels (encode, with or
+  without a fused histogram; canonical and general-tree decode;
+  histogram), each with its plain PyTorch version;
 * :mod:`tpuhuff_torch.dist` — host lane padding and bit stitch;
-* :mod:`tpuhuff_torch.io` — the ``.hf2`` device round trip.
+* :mod:`tpuhuff_torch.io` — the ``.hf2`` device round trip
+  (:func:`read_compress_write_hf2`, :func:`read_decompress_write_hf2`),
+  the ``.hff`` writer and reader (:func:`read_compress_write`,
+  :func:`read_decompress_write`) and config 4's dataset compression
+  (:func:`compress_dataset`, :func:`decompress_dataset`).
 
 Every entry point takes an explicit ``device``; nothing probes for a card
 at import, and nothing falls back to the CPU when CUDA is asked for.
 """
 
-from .io import read_compress_write_hf2, read_decompress_write_hf2
+from .io import (
+    compress_dataset,
+    decompress_dataset,
+    read_compress_write,
+    read_compress_write_hf2,
+    read_decompress_write,
+    read_decompress_write_hf2,
+)
 
-__all__ = ["read_compress_write_hf2", "read_decompress_write_hf2"]
+__all__ = [
+    "compress_dataset",
+    "decompress_dataset",
+    "read_compress_write",
+    "read_compress_write_hf2",
+    "read_decompress_write",
+    "read_decompress_write_hf2",
+]

@@ -1,21 +1,26 @@
-"""Host side of the ``.hf2`` codec: stream helpers, the host C++ writer
-and the threaded-DFA reader.
+"""Host side of the codec: stream helpers, the host C++ writers and the
+threaded-DFA readers.
 
 The port's copies of the host pieces of :mod:`tpuhuff.io.stream`, writing
 and reading the same bytes:
 
 * helpers the device routes share: :class:`StreamError`, the carrying
   :class:`_BitSink`, the CRC column's :class:`_CrcVerifier`, the chunk
-  and block defaults;
-* :func:`read_compress_write_hf2_host` — the ``device=False`` writer
-  (threaded C++ block encode, one worker thread ahead of the writes);
-* :func:`read_decompress_write_hf2_host` — the threaded-DFA reader.  The
-  device reader hands it the cases that have no per-block device decode:
-  an empty file, a one-letter tree and blocks longer than 2048 bytes.
+  and block defaults, pass 1's sampled reads (:func:`_sampled_pieces`)
+  and the read-ahead loop of every writer (:func:`_pipeline`);
+* :func:`read_compress_write_hf2_host` — the ``.hf2`` ``device=False``
+  writer (threaded C++ block encode, one worker thread ahead of the
+  writes), with config 4's ``collect_hist``;
+* :func:`read_decompress_write_hf2_host` — the threaded-DFA ``.hf2``
+  reader.  The device reader hands it the cases that have no per-block
+  device decode: an empty file, a one-letter tree and blocks longer than
+  2048 bytes;
+* :func:`read_compress_write_host` and :func:`read_decompress_write` — the
+  reference's ``.hff`` format: the ``device=False`` writer, and the serial
+  reader (the ``.hf2x`` sidecar index of the JAX reader is not ported).
 
-Both run on the port's C++ host runtime (:mod:`tpuhuff_torch.native`);
-there is no Python fallback.  Config 4's ``collect_hist`` option of the
-JAX writer is not copied.
+All run on the port's C++ host runtime (:mod:`tpuhuff_torch.native`);
+there is no Python fallback.
 """
 
 from __future__ import annotations
@@ -28,9 +33,9 @@ from typing import BinaryIO
 import numpy as np
 
 from .. import native
-from ..core.bits import calc_padding_bits
+from ..core.bits import BitString, calc_padding_bits
 from ..core.canonical import build_tree_for_device, canonicalize
-from ..core.tree import HuffTree
+from ..core.tree import FromBinError, HuffTree
 from ..core.weights import ByteWeights
 from .hff import (
     default_crc_every,
@@ -43,13 +48,18 @@ from .hff import (
 
 __all__ = [
     "StreamError",
+    "DEFAULT_BLOCK",
     "DEVICE_HF2_BLOCK",
     "HOST_HF2_BLOCK",
     "read_compress_write_hf2_host",
     "read_decompress_write_hf2_host",
+    "read_compress_write_host",
+    "read_decompress_write",
 ]
 
 _CHUNK = 64 << 20  # streaming granularity, independent of the block length
+_PASS1_PIECE = 256 << 20  # pass 1 reads (and samples) at most this at once
+DEFAULT_BLOCK = 2_000_000_000  # the reference's default block size ("2G")
 DEVICE_HF2_BLOCK = 256  # the device writer's default block
 HOST_HF2_BLOCK = 65536  # the host writer's: per-block dispatch dominates below
 
@@ -214,95 +224,227 @@ class _BitSink:
         return pad
 
 
+class _Hf2Sink:
+    """Write side of a ``.hf2`` writer after its prelude: each chunk's
+    block-table and CRC slices are patched in place, then its payload bits
+    are appended."""
+
+    def __init__(self, dst: BinaryIO, table_off: int, crc_off: int,
+                 width: int, crc_every: int):
+        self.dst = dst
+        self.table_off, self.crc_off = table_off, crc_off
+        self.width, self.crc_every = width, crc_every
+        self.bits = _BitSink(dst)
+        self.bidx = 0  # first block of the next chunk
+
+    def write(self, payload: bytes, nbits: int, bit_lens: np.ndarray,
+              crcs: np.ndarray | None) -> None:
+        write_hf2_table_slice(self.dst, self.table_off, self.width, self.bidx,
+                              bit_lens)
+        if crcs is not None:
+            write_hf2_crc_slice(self.dst, self.crc_off,
+                                self.bidx // self.crc_every, crcs)
+        self.bits.write(payload, nbits)
+        self.bidx += bit_lens.size
+
+    def finish(self) -> None:
+        self.bits.flush()
+
+
+def _start_hf2(dst: BinaryIO, tree: HuffTree, size: int, block_len: int,
+               canonical: bool, crc_every: int) -> tuple[HuffTree, _Hf2Sink]:
+    """Canonicalise ``tree`` when ``canonical`` and write the ``.hf2``
+    prelude; returns the tree to encode with and the sink of the chunks."""
+    if canonical:
+        tree = canonicalize(tree)
+    lens_lut, _ = tree.encode_tables()
+    width = hf2_table_width(block_len, int(lens_lut.max(initial=1)))
+    n_blocks = max(1, -(-size // block_len)) if size else 1
+    table_off, crc_off, _ = write_hf2_prelude(
+        dst, tree, size, block_len, n_blocks, width, canonical,
+        crc_every=crc_every,
+    )
+    return tree, _Hf2Sink(dst, table_off, crc_off, width, crc_every)
+
+
+class _HffSink(_BitSink):
+    """Write side of a ``.hff`` writer: the header (padding byte, tree
+    length, tree; `huff/src/comp.rs:54-59`), the payload bits, then the
+    padding byte patched (`comp.rs:69-70`)."""
+
+    def __init__(self, dst: BinaryIO, tree: HuffTree):
+        tree_bin = tree.as_bin()
+        self.tree_padding = calc_padding_bits(len(tree_bin))
+        tree_bytes = tree_bin.to_bytes()
+        dst.write(b"\x00")  # the padding byte, patched by finish()
+        dst.write(len(tree_bytes).to_bytes(4, "big"))
+        dst.write(tree_bytes)
+        super().__init__(dst)
+
+    def finish(self) -> None:
+        data_padding = self.flush()
+        self.fp.seek(0)
+        self.fp.write(bytes([(self.tree_padding << 4) | data_padding]))
+
+
+def _chunk_step(block_len: int, chunk_bytes: int | None,
+                check: bool) -> tuple[int, int, int]:
+    """``(step, crc_every, span_bytes)`` of a ``.hf2`` writer: a chunk is
+    a whole number of blocks AND of CRC spans, so each chunk patches its
+    own table and CRC slices."""
+    chunk = chunk_bytes if chunk_bytes is not None else _CHUNK
+    crc_every = default_crc_every(block_len) if check else 0
+    span_bytes = crc_every * block_len
+    step_unit = span_bytes if crc_every else block_len
+    return max(1, chunk // step_unit) * step_unit, crc_every, span_bytes
+
+
+def _sampled_pieces(fp: BinaryIO, size: int, step: int, hist_sample: int = 1):
+    """Pass 1's reads: up to ``size`` bytes of ``fp``, in pieces of
+    ``min(step, 256 MiB)``, each cut to its first ``1/hist_sample`` (at
+    least one byte).  The 256 MiB cap is the JAX writers' (their device
+    histogram counts in int32), so ``hist_sample > 1`` samples the same
+    bytes whatever the chunk size."""
+    samp = max(1, int(hist_sample))
+    piece_len = min(step, _PASS1_PIECE)
+    left = size
+    while left > 0:
+        piece = fp.read(min(piece_len, left))
+        if not piece:
+            break
+        left -= len(piece)
+        yield piece if samp == 1 else piece[: max(1, len(piece) // samp)]
+
+
+def _weights_from_stream(fp: BinaryIO, size: int, step: int,
+                         hist_sample: int = 1) -> ByteWeights:
+    """Pass 1 on the host: the counts of :func:`_sampled_pieces`, plus one
+    in every bin when sampled (so that every byte gets a code)."""
+    bw = ByteWeights()
+    for piece in _sampled_pieces(fp, size, step, hist_sample):
+        bw += ByteWeights.from_bytes(piece)
+    if max(1, int(hist_sample)) > 1 and size > 0:
+        bw = ByteWeights(bw.counts + 1)
+    return bw
+
+
+def _host_tree(bw: ByteWeights, max_code_len: int | None) -> HuffTree:
+    """The host writers' tree: the reference's, or the optimal tree limited
+    to ``max_code_len`` bits when one is given."""
+    if max_code_len is not None:
+        return build_tree_for_device(bw, max_len=max_code_len)[0]
+    return HuffTree.from_weights(bw)
+
+
+def _pipeline(src: BinaryIO, size: int, step: int, submit, collect) -> None:
+    """The writers' read-ahead loop: ``size`` bytes of ``src`` in ``step``
+    pieces, where piece k+1 is read and handed to ``submit(data, slot)``
+    before ``collect`` takes piece k's handle; so the encode of one piece
+    (on a worker thread, or on the card) overlaps the write of the one
+    before it.  ``slot`` alternates 0, 1."""
+    left, k, pending = size, 0, None
+    while left > 0 or pending is not None:
+        handle = None
+        piece = src.read(min(step, left)) if left > 0 else b""
+        if piece:
+            left -= len(piece)
+            handle = submit(np.frombuffer(piece, dtype=np.uint8), k % 2)
+            k += 1
+        else:
+            left = 0
+        if pending is not None:
+            collect(pending)
+        pending = handle
+
+
 def read_compress_write_hf2_host(
     src_path: str, dst_path: str, block_len: int | None = None,
     canonical: bool = True, chunk_bytes: int | None = None,
     hist_sample: int = 1, check: bool = True,
     tree: HuffTree | None = None, max_code_len: int | None = None,
-) -> None:
+    collect_hist: bool = False,
+) -> np.ndarray | None:
     """Compress into ``.hf2`` on the host; the same bytes as
     ``tpuhuff.io.stream.read_compress_write_hf2(..., device=False)``.
 
     Pass 1 histograms the file (unless ``tree`` is given; ``hist_sample >
-    1`` counts each chunk's first ``1/hist_sample`` bytes and adds one to
-    every bin).  The tree is the reference's, or the optimal tree limited
-    to ``max_code_len`` bits when one is given, canonicalised when
-    ``canonical``.  Pass 2 encodes chunk k on a worker thread while the
-    main thread writes chunk k-1 and reads chunk k+1.  ``block_len``
-    defaults to 65536; ``check`` writes the CRC32 column.
+    1`` counts the first ``1/hist_sample`` of each piece of
+    :func:`_sampled_pieces` and adds one to every bin).  The tree is the
+    reference's, or the optimal tree limited to ``max_code_len`` bits when
+    one is given, canonicalised when ``canonical``.  Pass 2 encodes chunk k
+    on a worker thread while the main thread writes chunk k-1 and reads
+    chunk k+1.  ``block_len`` defaults to 65536; ``check`` writes the
+    CRC32 column.  Returns the file's exact (256,) int64 histogram, counted
+    during pass 2, when ``collect_hist``, else None.
     """
     if block_len is None:
         block_len = HOST_HF2_BLOCK
     size = os.path.getsize(src_path)
-    n_blocks = max(1, -(-size // block_len)) if size else 1
-    chunk = chunk_bytes if chunk_bytes is not None else _CHUNK
-    crc_every = default_crc_every(block_len) if check else 0
-    span_bytes = crc_every * block_len
-    # a chunk is a whole number of blocks AND of CRC spans, so each chunk
-    # patches its own table and CRC slices
-    step_unit = span_bytes if crc_every else block_len
-    step = max(1, chunk // step_unit) * step_unit
-    samp = max(1, int(hist_sample))
+    step, crc_every, span_bytes = _chunk_step(block_len, chunk_bytes, check)
     with open(src_path, "rb") as src, open(dst_path, "wb") as dst:
         if tree is None:
-            bw = ByteWeights()
-            left = size
-            while left > 0:
-                piece = src.read(min(step, left))
-                if not piece:
-                    break
-                bw += ByteWeights.from_bytes(
-                    piece if samp == 1 else piece[: max(1, len(piece) // samp)])
-                left -= len(piece)
-            if samp > 1 and size > 0:
-                bw = ByteWeights(bw.counts + 1)  # every byte gets a code
-            if max_code_len is not None:
-                tree, _limited = build_tree_for_device(bw, max_len=max_code_len)
-            else:
-                tree = HuffTree.from_weights(bw)
-        if canonical:
-            tree = canonicalize(tree)
+            tree = _host_tree(_weights_from_stream(src, size, step, hist_sample),
+                              max_code_len)
+        tree, sink = _start_hf2(dst, tree, size, block_len, canonical,
+                                crc_every)
         lens_lut, codes_lut = tree.encode_tables()
-        width = hf2_table_width(block_len, int(lens_lut.max(initial=1)))
-        table_off, crc_off, _ = write_hf2_prelude(
-            dst, tree, size, block_len, n_blocks, width, canonical,
-            crc_every=crc_every,
-        )
         src.seek(0)
+        hist = np.zeros(256, dtype=np.int64) if collect_hist else None
 
-        def encode_job(piece: bytes):
-            data = np.frombuffer(piece, dtype=np.uint8)
+        def encode_job(data: np.ndarray):
             payload, nbits, bit_lens = native.encode_blocks_host(
                 data, block_len, lens_lut, codes_lut)
             crcs = native.crc32_blocks(data, span_bytes) if crc_every else None
-            return payload, nbits, bit_lens, crcs
+            counts = native.hist(data) if collect_hist else None
+            return payload, nbits, bit_lens, crcs, counts
 
-        sink = _BitSink(dst)
-        bidx = 0
-        left = size
+        def collect(fut) -> None:
+            payload, nbits, bit_lens, crcs, counts = fut.result()
+            if counts is not None:
+                hist[:] += counts
+            sink.write(payload, nbits, bit_lens, crcs)
+
         with concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:
-            pending = None
-            while True:
-                fut = None
-                if left > 0:
-                    piece = src.read(min(step, left))
-                    if piece:
-                        left -= len(piece)
-                        fut = ex.submit(encode_job, piece)
-                    else:
-                        left = 0
-                if pending is not None:
-                    payload, nbits, bit_lens, crcs = pending.result()
-                    write_hf2_table_slice(dst, table_off, width, bidx, bit_lens)
-                    if crcs is not None:
-                        write_hf2_crc_slice(dst, crc_off, bidx // crc_every,
-                                            crcs)
-                    sink.write(payload, nbits)
-                    bidx += bit_lens.size
-                pending = fut
-                if pending is None and left <= 0:
-                    break
-        sink.flush()
+            _pipeline(src, size, step,
+                      lambda data, slot: ex.submit(encode_job, data), collect)
+        sink.finish()
+    return hist
+
+
+def read_compress_write_host(
+    src_path: str, dst_path: str, block_size: int = DEFAULT_BLOCK,
+    hist_sample: int = 1, tree: HuffTree | None = None,
+    max_code_len: int | None = None,
+) -> None:
+    """Compress into the reference's ``.hff`` format on the host; the same
+    bytes as ``tpuhuff.io.stream.read_compress_write(..., device=False)``.
+
+    Pass 1 (unless ``tree`` is given) counts the file in pieces of
+    ``min(block_size, 64 MiB)``, sampled as in
+    :func:`read_compress_write_hf2_host`; the tree is the reference's, or
+    limited to ``max_code_len`` bits.  A ``tree`` with no code for some
+    byte of the file raises :class:`CompressError`.  Pass 2 encodes piece
+    k on a worker thread while piece k-1 is written.
+    """
+    size = os.path.getsize(src_path)
+    step = min(block_size, _CHUNK)
+    with open(src_path, "rb") as src, open(dst_path, "wb") as dst:
+        if tree is None:
+            tree = _host_tree(_weights_from_stream(src, size, step, hist_sample),
+                              max_code_len)
+        sink = _HffSink(dst, tree)
+        lens_lut, codes_lut = tree.encode_tables()
+        src.seek(0)
+
+        def encode_job(data: np.ndarray):
+            payload, pad = native.encode(data, lens_lut, codes_lut)
+            return payload, len(payload) * 8 - pad
+
+        with concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:
+            _pipeline(src, size, step,
+                      lambda data, slot: ex.submit(encode_job, data),
+                      lambda fut: sink.write(*fut.result()))
+        sink.finish()
 
 
 def read_decompress_write_hf2_host(
@@ -385,3 +527,95 @@ def read_decompress_write_hf2_host(
                 verifier.finish()
         finally:
             pool.shutdown(wait=False)
+
+
+def _read_hff_header(src: BinaryIO, src_path: str):
+    """Parse a ``.hff`` header: padding byte, tree length, tree
+    (`huff/src/comp.rs:92-145`).  Returns ``(tree, data_padding,
+    header_len)``."""
+    head = src.read(5)
+    if len(head) < 5:
+        raise StreamError(
+            f"{src_path!r} too short to decompress, missing header information",
+            "MissingHeaderInfo",
+        )
+    tree_padding = head[0] >> 4
+    data_padding = head[0] & 0x0F
+    if tree_padding > 7 or data_padding > 7:
+        raise _invalid(src_path)
+    tree_len = int.from_bytes(head[1:5], "big")
+    tree_bytes = src.read(tree_len)
+    if len(tree_bytes) < tree_len:
+        raise StreamError(
+            f"{src_path!r} too short to decompress, missing header information",
+            "MissingHeaderInfo",
+        )
+    try:
+        tree = HuffTree.try_from_bin(
+            BitString.from_bytes(tree_bytes, tree_len * 8 - tree_padding))
+    except (FromBinError, ValueError):
+        raise _invalid(src_path) from None
+    return tree, data_padding, 5 + tree_len
+
+
+def read_decompress_write(
+    src_path: str, dst_path: str, block_size: int = DEFAULT_BLOCK,
+    auto_index: bool | None = None,
+) -> None:
+    """Decode a ``.hff`` file, streaming; the same bytes as
+    ``tpuhuff.io.stream.read_decompress_write`` (`huff/src/comp.rs:79-157`).
+
+    The payload is read in windows of ``min(max(block_size, 1 MiB),
+    64 MiB)`` and decoded serially by the C++ DFA; a code that straddles a
+    window's end is decoded again from the next window.  A one-letter tree
+    emits one letter per payload bit.  The JAX reader's ``.hf2x`` sidecar
+    index is not ported: ``auto_index=True`` raises
+    :class:`NotImplementedError`, and the default decodes serially.
+    """
+    if auto_index:
+        raise NotImplementedError(
+            "auto_index: the .hf2x sidecar index (decode_hff_indexed, "
+            "transcode_hff_to_hf2) is not ported yet (ROADMAP.md section 1, "
+            "item 2)")
+    size = os.path.getsize(src_path)
+    with open(src_path, "rb") as src, open(dst_path, "wb") as dst:
+        tree, data_padding, header_len = _read_hff_header(src, src_path)
+        payload_len = size - header_len
+        total_bits = payload_len * 8 - data_padding
+        if payload_len <= 0:
+            return
+        if tree.is_leaf(tree.root):
+            letter = bytes([int(tree.letters[tree.root])])
+            left_bits = total_bits
+            while left_bits > 0:
+                emit = min(left_bits, _CHUNK * 8)
+                dst.write(letter * emit)
+                left_bits -= emit
+            return
+        tables = native.build_dfa(tree)
+        step_bytes = min(max(block_size, 1 << 20), _CHUNK)
+        pos_bit = 0   # next bit to decode (in the payload)
+        window = b""
+        win_byte = 0  # payload byte index of window[0]
+        while pos_bit < total_bits:
+            # slide the window: drop consumed whole bytes, read ahead
+            drop = pos_bit // 8 - win_byte
+            if drop > 0:
+                window = window[drop:]
+                win_byte += drop
+            want_end = min(win_byte + len(window) + step_bytes,
+                           (total_bits + 7) // 8)
+            need = want_end - (win_byte + len(window))
+            if need > 0:
+                window += src.read(need)
+            end_bit = min((win_byte + len(window)) * 8, total_bits)
+            out, resume = native.decode_resume(
+                np.frombuffer(window, dtype=np.uint8), pos_bit - win_byte * 8,
+                end_bit - win_byte * 8, tables, end_bit - pos_bit)
+            dst.write(out)
+            if end_bit == total_bits:
+                break  # the tail bits are padding: done
+            new_pos = resume + win_byte * 8
+            if new_pos <= pos_bit:
+                raise _invalid(src_path)
+            pos_bit = new_pos

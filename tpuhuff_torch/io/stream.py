@@ -1,18 +1,21 @@
-"""Streaming ``.hf2`` compress/decompress through the port's device kernels.
+"""Streaming compress/decompress through the port's device kernels.
 
-Counterparts of the device routes of :func:`tpuhuff.io.stream.read_compress_write_hf2`
-and :func:`tpuhuff.io.stream.read_decompress_write_hf2`: the same arguments
+Counterparts of the device routes of :mod:`tpuhuff.io.stream`:
+:func:`read_compress_write_hf2`, :func:`read_decompress_write_hf2` and the
+``.hff`` writer :func:`read_compress_write`, with the same arguments
 (``device`` names a torch device instead of a flag) and the same bytes.
 The container, tree, CRC and bit-sink code is the port's own copy of the
 JAX package's host code (:mod:`tpuhuff_torch.io.hff`, :mod:`.host`).
 
 Compress: pass 1 histograms the file on the device (:func:`histogram`);
 the host builds the length-limited canonical tree and writes the prelude;
-pass 2 encodes 256-byte lanes on the device (:func:`encode_blocks`) while
-the host stitches, patches the block table and CRC column and writes the
-previous chunk.  Decompress gathers each group's block rows on the host,
-decodes them on the device (:func:`decode_rows` for canonical codes,
-:func:`decode_rows_general` for any other tree) and verifies the CRCs.
+pass 2 encodes 256-byte lanes on the device (:func:`encode_blocks`; with
+``collect_hist`` the same launches count the bytes, config 4's adaptive
+refresh) while the host stitches, patches the block table and CRC column
+and writes the previous chunk.  Decompress gathers each group's block
+rows on the host, decodes them on the device (:func:`decode_rows` for
+canonical codes, :func:`decode_rows_general` for any other tree) and
+verifies the CRCs.
 
 Pipelining: launches are asynchronous on the current CUDA stream, host
 buffers are pinned, copies are ``non_blocking``, and the only sync point is
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 from .. import native
-from ..core.canonical import build_tree_for_device, canonicalize
+from ..core.canonical import build_tree_for_device
 from ..core.format import CompressError
 from ..core.tree import HuffTree
 from ..core.weights import ByteWeights
@@ -40,27 +43,27 @@ from ..kernels import (
     make_encode_tables,
     payload_to_lane_words,
 )
-from .hff import (
-    default_crc_every,
-    hf2_table_width,
-    write_hf2_crc_slice,
-    write_hf2_prelude,
-    write_hf2_table_slice,
-)
 from .host import (
+    DEFAULT_BLOCK,
     DEVICE_HF2_BLOCK,
     _CHUNK,
     StreamError,
-    _BitSink,
     _block_bits,
     _check_sizes,
+    _chunk_step,
     _CrcVerifier,
+    _HffSink,
+    _pipeline,
     _read_header,
     _record_call,
+    _sampled_pieces,
+    _start_hf2,
+    _weights_from_stream,
     read_decompress_write_hf2_host,
 )
 
-__all__ = ["read_compress_write_hf2", "read_decompress_write_hf2"]
+__all__ = ["read_compress_write_hf2", "read_decompress_write_hf2",
+           "read_compress_write"]
 
 # largest block the device decoder takes: bigger blocks (host-written
 # .hf2) would be one long serial scan per thread; the threaded host DFA
@@ -143,44 +146,54 @@ class _Staging:
 
 
 def _device_block_encoder(tree: HuffTree, block_len: int,
-                          device: torch.device, staging: _Staging):
+                          device: torch.device, staging: _Staging,
+                          collect_hist: bool = False):
     """Device encoder for ``.hf2`` block groups (counterpart of
     ``tpuhuff.io.stream._device_block_encoder``).
 
     Each ``block_len`` block is encoded as ``block_len // lane`` independent
     lanes and the lane streams are bit-concatenated in order, which is
     bit-identical to encoding the block whole (prefix-code concatenation
-    is associative); per-block bit lengths are lane sums."""
+    is associative); per-block bit lengths are lane sums.  ``collect_hist``
+    counts the chunk's bytes in the same launch (K5, ``hist_data`` = the
+    lanes just copied); ``collect`` subtracts the lanes' zero padding from
+    bin 0, as the JAX route does."""
     tables = make_encode_tables(*tree.encode_tables()).to(device)
     ml = tables.max_len
     lane = min(block_len & -block_len, DEVICE_HF2_BLOCK)
     per_block = block_len // lane
+    names = ("words", "bits", "miss", "hist")
 
     def submit(data: np.ndarray, slot: int):
         """H2D + kernel + D2H for one chunk, without waiting for any."""
         # whole blocks of lanes: the last block's missing lanes are padding
         lanes, valid, _ = pad_to_blocks(data, lane, per_block)
         nb = lanes.shape[0] // per_block
-        words, bits, miss = encode_blocks(
-            staging.h2d(lanes, ("lanes", slot)),
-            staging.h2d(valid, ("valid", slot)), tables, ml)
-        host = (staging.d2h(words, ("words", slot)),
-                staging.d2h(bits, ("bits", slot)),
-                staging.d2h(miss, ("miss", slot)))
-        return host, nb, staging.fence()
+        dlanes = staging.h2d(lanes, ("lanes", slot))
+        out = encode_blocks(dlanes, staging.h2d(valid, ("valid", slot)),
+                            tables, ml,
+                            hist_data=dlanes if collect_hist else None)
+        host = tuple(staging.d2h(t, (name, slot)) for name, t in zip(names, out))
+        return host, nb, lanes.size - data.size, staging.fence()
 
     def collect(handle):
         """Wait for a submitted chunk; host stitch of its words.  Returns
-        ``(payload, total_bits, bit_lens)``."""
-        (words, bits, miss), nb, done = handle
+        ``(payload, total_bits, bit_lens, hist)``, ``hist`` the chunk's
+        (256,) int64 counts or None."""
+        host, nb, pad, done = handle
         if done is not None:
             done.synchronize()
+        words, bits, miss = host[:3]
         if int(miss.sum()):
             raise CompressError("letter not found in codes", None)
         bits_np = bits.numpy().astype(np.uint64)
         payload, _ = stitch_words(words.numpy().view(np.uint32), bits_np)
         bit_lens = bits_np.reshape(nb, per_block).sum(axis=1)
-        return payload, int(bits_np.sum()), bit_lens
+        hist = None
+        if collect_hist:
+            hist = host[3].numpy().astype(np.int64)  # a copy: slots are reused
+            hist[0] -= pad  # the padding lanes' zeros
+        return payload, int(bits_np.sum()), bit_lens, hist
 
     submit.collect = collect
     return submit
@@ -192,7 +205,8 @@ def read_compress_write_hf2(
     chunk_bytes: int | None = None, stats: dict | None = None,
     hist_sample: int = 1, check: bool = True,
     tree: HuffTree | None = None, max_code_len: int | None = None,
-) -> None:
+    collect_hist: bool = False,
+) -> np.ndarray | None:
     """Compress into the block-indexed ``.hf2`` container on ``device``,
     streaming in ``chunk_bytes`` pieces; writes the same bytes as
     ``tpuhuff.io.stream.read_compress_write_hf2(..., device=True)``.
@@ -200,92 +214,104 @@ def read_compress_write_hf2(
     ``device`` is a torch device (``"cuda"``, ``"cuda:1"``, ``"cpu"``); on
     the CPU the kernels' plain versions run.  ``block_len`` defaults to
     256.  Pass 1 (the device histogram) is skipped when ``tree`` is given;
-    ``hist_sample > 1`` counts each chunk's first ``1/hist_sample`` bytes
-    and adds one to every bin.  The tree is length-limited to
-    ``min(max_code_len, 32)`` bits and canonicalised when ``canonical``.
-    A ``tree`` with no code for some byte of the file raises
-    :class:`CompressError`.  ``check`` writes the CRC32 column.
+    ``hist_sample > 1`` counts the first ``1/hist_sample`` of each piece
+    of :func:`_sampled_pieces` and adds one to every bin.  The tree is
+    length-limited to ``min(max_code_len, 32)`` bits and canonicalised
+    when ``canonical``.  A ``tree`` with no code for some byte of the file
+    raises :class:`CompressError`.  ``check`` writes the CRC32 column.
+    ``collect_hist`` returns the file's exact (256,) int64 histogram,
+    counted during pass 2 by the encode launches themselves (K5); else
+    None is returned.
     """
     dev = _resolve(device)
     if block_len is None:
         block_len = DEVICE_HF2_BLOCK
     size = os.path.getsize(src_path)
-    n_blocks = max(1, -(-size // block_len)) if size else 1
-    chunk = chunk_bytes if chunk_bytes is not None else _CHUNK
-    crc_every = default_crc_every(block_len) if check else 0
-    span_bytes = crc_every * block_len
-    # a chunk is a whole number of blocks AND of CRC spans, so each chunk
-    # patches its own table and CRC slices
-    step_unit = span_bytes if crc_every else block_len
-    step = max(1, chunk // step_unit) * step_unit
+    step, crc_every, span_bytes = _chunk_step(block_len, chunk_bytes, check)
     staging = _Staging(dev)
-    samp = max(1, int(hist_sample))
     with open(src_path, "rb") as src, open(dst_path, "wb") as dst:
         if tree is None:
-            # pass 1: device histogram per chunk, accumulated on the device
+            # pass 1: device histogram per piece, accumulated on the device
             # in int64; one 256-count transfer at the end
             acc = torch.zeros(256, dtype=torch.int64, device=dev)
-            left = size
-            k = 0
-            while left > 0:
-                piece = src.read(min(step, left))
-                if not piece:
-                    break
-                left -= len(piece)
-                if samp > 1:
-                    piece = piece[: max(1, len(piece) // samp)]
+            for k, piece in enumerate(_sampled_pieces(src, size, step,
+                                                      hist_sample)):
                 acc += histogram(staging.h2d(
                     np.frombuffer(piece, dtype=np.uint8), ("hist", k % 2)))
-                k += 1
             counts = acc.cpu().numpy()
-            if samp > 1 and size > 0:
+            if max(1, int(hist_sample)) > 1 and size > 0:
                 counts = counts + 1  # every byte gets a code
             ml_cap = 32 if max_code_len is None else min(max_code_len, 32)
             tree, _limited = build_tree_for_device(ByteWeights(counts),
                                                    max_len=ml_cap)
-        if canonical:
-            tree = canonicalize(tree)
-        lens_lut, _ = tree.encode_tables()
-        width = hf2_table_width(block_len, int(lens_lut.max(initial=1)))
-        table_off, crc_off, _ = write_hf2_prelude(
-            dst, tree, size, block_len, n_blocks, width, canonical,
-            crc_every=crc_every,
-        )
+        tree, sink = _start_hf2(dst, tree, size, block_len, canonical,
+                                crc_every)
         # pass 2: chunk k+1 is read, copied and launched before chunk k is
         # collected, stitched and written
         src.seek(0)
-        submit = _device_block_encoder(tree, block_len, dev, staging)
-        sink = _BitSink(dst)
-        bidx = 0
-        left = size
-        k = 0
-        pending = None  # (handle, crcs, submit_time)
-        while True:
-            handle = None
-            if left > 0:
-                piece = src.read(min(step, left))
-                if piece:
-                    data = np.frombuffer(piece, dtype=np.uint8)
-                    left -= data.size
-                    crcs = (native.crc32_blocks(data, span_bytes)
-                            if crc_every else None)
-                    handle = (submit(data, k % 2), crcs, time.perf_counter())
-                    k += 1
-                else:
-                    left = 0
-            if pending is not None:
-                h, crcs_p, t0_p = pending
-                payload, nbits, bit_lens = submit.collect(h)
-                _record_call(stats, time.perf_counter() - t0_p)
-                write_hf2_table_slice(dst, table_off, width, bidx, bit_lens)
-                if crcs_p is not None:
-                    write_hf2_crc_slice(dst, crc_off, bidx // crc_every, crcs_p)
-                sink.write(payload, nbits)
-                bidx += bit_lens.size
-            pending = handle
-            if pending is None and left <= 0:
-                break
-        sink.flush()
+        encoder = _device_block_encoder(tree, block_len, dev, staging,
+                                        collect_hist)
+        hist = np.zeros(256, dtype=np.int64) if collect_hist else None
+
+        def submit(data: np.ndarray, slot: int):
+            handle = encoder(data, slot)
+            crcs = native.crc32_blocks(data, span_bytes) if crc_every else None
+            return handle, crcs, time.perf_counter()
+
+        def collect(pending) -> None:
+            handle, crcs, t0 = pending
+            payload, nbits, bit_lens, counts = encoder.collect(handle)
+            _record_call(stats, time.perf_counter() - t0)
+            if counts is not None:
+                hist[:] += counts
+            sink.write(payload, nbits, bit_lens, crcs)
+
+        _pipeline(src, size, step, submit, collect)
+        sink.finish()
+    return hist
+
+
+def read_compress_write(
+    src_path: str, dst_path: str, block_size: int = DEFAULT_BLOCK,
+    device="cuda", stats: dict | None = None, hist_sample: int = 1,
+    tree: HuffTree | None = None, max_code_len: int | None = None,
+) -> None:
+    """Compress into the reference's ``.hff`` format on ``device``; writes
+    the same bytes as ``tpuhuff.io.stream.read_compress_write(...,
+    device=True)``.
+
+    Pass 1 (unless ``tree`` is given) counts the file on the host in
+    pieces of ``min(block_size, 64 MiB)`` (sampled as in
+    :func:`read_compress_write_hf2`) and builds the tree limited to
+    ``min(max_code_len, 32)`` bits, not canonicalised.  Pass 2 encodes each
+    piece as 256-byte lanes with :func:`encode_blocks` (K1), piece k+1
+    launched before piece k is stitched and written; a byte with no code
+    raises :class:`CompressError`.  ``stats["device_call_s"]`` gets each
+    piece's submit-to-collect wall time.
+    """
+    dev = _resolve(device)
+    size = os.path.getsize(src_path)
+    step = min(block_size, _CHUNK)
+    with open(src_path, "rb") as src, open(dst_path, "wb") as dst:
+        if tree is None:
+            bw = _weights_from_stream(src, size, step, hist_sample)
+            cap = 32 if max_code_len is None else min(max_code_len, 32)
+            tree, _limited = build_tree_for_device(bw, max_len=cap)
+        sink = _HffSink(dst, tree)
+        src.seek(0)
+        encoder = _device_block_encoder(tree, DEVICE_HF2_BLOCK, dev,
+                                        _Staging(dev))
+
+        def collect(pending) -> None:
+            handle, t0 = pending
+            payload, nbits, _, _ = encoder.collect(handle)
+            _record_call(stats, time.perf_counter() - t0)
+            sink.write(payload, nbits)
+
+        _pipeline(src, size, step,
+                  lambda data, slot: (encoder(data, slot), time.perf_counter()),
+                  collect)
+        sink.finish()
 
 
 def read_decompress_write_hf2(

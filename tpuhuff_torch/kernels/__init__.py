@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch version.
 
 * :func:`encode_blocks` (``csrc/encode.cu``) — lanes of bytes to MSB-first
-  Huffman words, exact bit counts and missing-letter counts;
+  Huffman words, exact bit counts and missing-letter counts (K1); with
+  ``hist_data``, also the exact counts of a second byte operand in the same
+  launch (K5, counted in ``encode_blocks.hist_launches``);
 * :func:`decode_rows` (``csrc/decode.cu``) — canonical decode of
   independent ``.hf2`` blocks;
 * :func:`decode_rows_general` (``csrc/decode_general.cu``) — the same

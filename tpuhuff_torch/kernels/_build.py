@@ -41,6 +41,9 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # data, valid, lens, acodes, words, bits, miss, B, N, R, stream
     "tpuhuff_encode_lanes": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # ... the same, then hist, n_hist, hist_out, stream
+    "tpuhuff_encode_lanes_hist": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
+                                  _L, _P, _P],
     # rows, bit0, nbits, ub, dd, perm, out, B, W, block_len, max_len, stream
     "tpuhuff_decode_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # rows, bit0, nbits, thr, sym, len, out, B, W, block_len, stream

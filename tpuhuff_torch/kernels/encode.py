@@ -1,12 +1,15 @@
 """Device encode: pack lanes of bytes into MSB-first Huffman bitstreams.
 
 Counterpart of :mod:`tpuhuff.kernels.encode` (``encode_blocks``) and of the
-fused Pallas kernel ``tpuhuff.kernels.pallas_encode2._encode_kernel_fused``.
+Pallas kernels of ``tpuhuff.kernels.pallas_encode2``: the fused
+``_encode_kernel_fused`` with and without its ``hist_data`` histogram, and
+``_encode_kernel`` behind the flat and cell-major layouts.
 The contract is the same: per lane, u32 words MSB-first plus an exact bit
 count; bytes past ``valid_lens`` emit nothing; valid bytes without a code
-are counted as missing.  The lookup is a dense 256-entry ``(len,
-left-aligned code)`` table, so one kernel serves every tree with codes of
-up to 32 bits, canonical or not.
+are counted as missing; with ``hist_data``, the exact counts of a second
+byte operand.  The lookup is a dense 256-entry ``(len, left-aligned
+code)`` table, so one kernel serves every tree with codes of up to 32
+bits, canonical or not, and every power-of-two lane length up to 1024.
 
 32-bit words cross the kernel interface as ``torch.int32`` bit patterns;
 the plain version computes in ``int64``.
@@ -111,44 +114,75 @@ def _check_args(lanes, valid_lens, tables, max_code_len):
     return B, N, out_words(N, ml)
 
 
+def _check_hist(hist_data, limit: int, device) -> None:
+    if hist_data.device != device:
+        raise ValueError(f"hist_data is on {hist_data.device}, expected {device}")
+    if hist_data.dtype != torch.uint8:
+        raise TypeError(f"hist_data has dtype {hist_data.dtype}, expected uint8")
+    if not hist_data.is_contiguous():
+        raise ValueError("hist_data must be contiguous")
+    if hist_data.numel() > limit:
+        raise ValueError(f"hist_data has {hist_data.numel()} bytes, more than "
+                         f"the lanes' {limit}")
+
+
 def encode_blocks(lanes: torch.Tensor, valid_lens: torch.Tensor,
-                  tables: EncodeTables, max_code_len: int | None = None):
+                  tables: EncodeTables, max_code_len: int | None = None,
+                  hist_data: torch.Tensor | None = None):
     """Encode (B, N) uint8 lanes; returns ``(words (B, R) int32, bits (B,)
     int32, miss (B,) int32)`` with ``R = out_words(N, max_code_len)``.
 
     ``words`` hold u32 bit patterns, numeric MSB-first (serialise as
     ``>u4``); only the first ``ceil(bits/32)`` words of a lane are nonzero.
     ``miss`` counts each lane's valid bytes that have no code; the caller
-    sums it.  CUDA tensors launch the kernel (``csrc/encode.cu``); CPU
-    tensors take :func:`encode_blocks_reference`.
+    sums it.  ``hist_data``, a contiguous uint8 tensor of at most ``B * N``
+    bytes on the lanes' device, adds a fourth result: the (256,) int64
+    counts of its bytes, taken in the same launch (K5, counted in
+    ``encode_blocks.hist_launches``; without it K1, counted in
+    ``encode_blocks.launches``).  CUDA tensors launch the kernel
+    (``csrc/encode.cu``); CPU tensors take :func:`encode_blocks_reference`.
     """
     B, N, R = _check_args(lanes, valid_lens, tables, max_code_len)
+    if hist_data is not None:
+        _check_hist(hist_data, B * N, lanes.device)
     if lanes.device.type == "cpu":
-        return encode_blocks_reference(lanes, valid_lens, tables, max_code_len)
+        return encode_blocks_reference(lanes, valid_lens, tables, max_code_len,
+                                       hist_data)
     if lanes.device.type != "cuda":
         raise ValueError(f"unsupported device {lanes.device}")
     dev = lanes.device
     words = torch.empty((B, R), dtype=torch.int32, device=dev)
     bits = torch.empty(B, dtype=torch.int32, device=dev)
     miss = torch.empty(B, dtype=torch.int32, device=dev)
-    _build.launch("tpuhuff_encode_lanes", dev, lanes.data_ptr(),
-                  valid_lens.data_ptr(), tables.lens.data_ptr(),
-                  tables.acodes.data_ptr(), words.data_ptr(), bits.data_ptr(),
-                  miss.data_ptr(), B, N, R)
-    encode_blocks.launches += 1
-    return words, bits, miss
+    args = (lanes.data_ptr(), valid_lens.data_ptr(), tables.lens.data_ptr(),
+            tables.acodes.data_ptr(), words.data_ptr(), bits.data_ptr(),
+            miss.data_ptr(), B, N, R)
+    if hist_data is None:
+        _build.launch("tpuhuff_encode_lanes", dev, *args)
+        encode_blocks.launches += 1
+        return words, bits, miss
+    counts = torch.zeros(256, dtype=torch.int64, device=dev)
+    _build.launch("tpuhuff_encode_lanes_hist", dev, *args,
+                  hist_data.data_ptr(), hist_data.numel(), counts.data_ptr())
+    encode_blocks.hist_launches += 1
+    return words, bits, miss, counts
 
 
-encode_blocks.launches = 0
+encode_blocks.launches = 0       # K1
+encode_blocks.hist_launches = 0  # K5
 
 
 def encode_blocks_reference(lanes: torch.Tensor, valid_lens: torch.Tensor,
                             tables: EncodeTables,
-                            max_code_len: int | None = None):
+                            max_code_len: int | None = None,
+                            hist_data: torch.Tensor | None = None):
     """Plain PyTorch version of :func:`encode_blocks` (any device): LUT
     gather, per-lane ``cumsum`` for bit offsets, and ``scatter_add_`` of
-    disjoint bit fields into int64 words, where the sum equals the OR."""
+    disjoint bit fields into int64 words, where the sum equals the OR;
+    ``hist_data``'s counts by ``torch.bincount``."""
     B, N, R = _check_args(lanes, valid_lens, tables, max_code_len)
+    if hist_data is not None:
+        _check_hist(hist_data, B * N, lanes.device)
     dev = lanes.device
     idx = lanes.long()
     lens = tables.lens.long()[idx]
@@ -169,5 +203,8 @@ def encode_blocks_reference(lanes: torch.Tensor, valid_lens: torch.Tensor,
     acc.scatter_add_(1, word, hi)
     acc.scatter_add_(1, word + 1, lo)
     bits = end[:, -1].to(torch.int32)
-    return _i64_to_i32(acc[:, :R]), bits, miss
+    out = (_i64_to_i32(acc[:, :R]), bits, miss)
+    if hist_data is None:
+        return out
+    return (*out, torch.bincount(hist_data.reshape(-1), minlength=256))
 

@@ -12,9 +12,12 @@ Entry points (the subset of :mod:`tpuhuff.native` the port calls, with the
 same arguments and results):
 
 * :func:`hist` — threaded byte histogram;
+* :func:`encode` — threaded encode of one bitstream (the ``.hff`` payload);
 * :func:`encode_blocks_host` — threaded independent-block encode + stitch;
 * :func:`build_dfa` / :func:`decode_blocks` — byte-driven DFA decode of
   independent bit ranges;
+* :func:`decode_resume` — DFA decode of one bit range, resumable at the
+  last complete code (the streamed ``.hff`` reader);
 * :func:`crc32_blocks` — per-span zlib CRC32s;
 * :func:`extract_rows` — per-block row gather for the device decoders;
 * :func:`stitch_blocks` — bit-carry concatenation of block bitstreams.
@@ -41,9 +44,11 @@ __all__ = [
     "build_seconds",
     "num_threads",
     "hist",
+    "encode",
     "encode_blocks_host",
     "DfaTables",
     "build_dfa",
+    "decode_resume",
     "decode_blocks",
     "crc32_blocks",
     "extract_rows",
@@ -80,12 +85,18 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     # data, n, threads, out
     "huffc_hist": ([_u8p, _U64, _INT, _u64p], None),
+    # data, n, lens, codes, out, cap, start_bit, threads
+    "huffc_encode": ([_u8p, _U64, _u8p, _u64p, _u8p, _U64, _U64, _INT], _I64),
     # data, n, block_len, lens, codes, out, cap, bit_lens, threads
     "huffc_encode_blocks": ([_u8p, _U64, _U64, _u8p, _u64p, _u8p, _U64,
                              _u64p, _INT], _I64),
     # left, right, letter, n, root, next, count, syms, last_bit, state_of_node
     "huffc_build_dfa": ([_i32p, _i32p, _i32p, _I32, _I32, _i16p, _u8p, _u8p,
                          _u8p, _i16p], _I32),
+    # comp, start_bit, end_bit, <dfa tables>, root, out, cap, resume
+    "huffc_decode": ([_u8p, _U64, _U64, _i16p, _u8p, _u8p, _u8p, _i32p,
+                      _i32p, _i32p, _i16p, _i32p, _I32, _u8p, _U64, _u64p],
+                     _I64),
     # comp, starts, ends, nb, <dfa tables>, root, out, offs, caps, lens, threads
     "huffc_decode_blocks": ([_u8p, _u64p, _u64p, _I64, _i16p, _u8p, _u8p,
                              _u8p, _i32p, _i32p, _i32p, _i16p, _i32p, _I32,
@@ -185,6 +196,25 @@ def hist(data: np.ndarray, threads: int | None = None) -> np.ndarray:
     return out.astype(np.int64)
 
 
+def encode(data: np.ndarray, lens_lut: np.ndarray, codes_lut: np.ndarray,
+           threads: int | None = None) -> Tuple[bytes, int]:
+    """Pack ``data`` into one MSB-first bitstream; returns ``(payload,
+    padding_bits)``.  A byte with no code raises :class:`CompressError`."""
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    lens_lut = np.ascontiguousarray(lens_lut, dtype=np.uint8)
+    codes_lut = np.ascontiguousarray(codes_lut, dtype=np.uint64)
+    max_len = int(lens_lut.max()) if lens_lut.size else 0
+    cap = (data.size * max(max_len, 1) + 7) // 8 + 16
+    out = np.zeros(cap, dtype=np.uint8)
+    r = int(lib().huffc_encode(data, data.size, lens_lut, codes_lut, out, cap,
+                               0, threads or num_threads()))
+    if r == -2:
+        raise CompressError("letter not found in codes", None)
+    if r < 0:
+        raise RuntimeError(f"huffc_encode failed: {r}")
+    return out[: (r + 7) // 8].tobytes(), (8 - r % 8) % 8
+
+
 def encode_blocks_host(
     data: np.ndarray, block_len: int, lens_lut: np.ndarray,
     codes_lut: np.ndarray, threads: int | None = None,
@@ -247,6 +277,25 @@ class DfaTables:
 
 def build_dfa(tree) -> DfaTables:
     return DfaTables(tree)
+
+
+def decode_resume(comp: np.ndarray, start_bit: int, end_bit: int,
+                  tables: DfaTables, out_cap: int) -> Tuple[bytes, int]:
+    """Decode the bit range ``[start_bit, end_bit)`` of ``comp``; returns
+    ``(letters, resume_bit)``, ``resume_bit`` the offset just past the last
+    complete code (a code may straddle the end of a streamed window)."""
+    comp = np.ascontiguousarray(comp, dtype=np.uint8)
+    out = np.empty(out_cap, dtype=np.uint8)
+    resume = np.zeros(1, dtype=np.uint64)
+    r = int(lib().huffc_decode(
+        comp, start_bit, end_bit, tables.next_state.reshape(-1),
+        tables.emit_count.reshape(-1), tables.emit_syms.reshape(-1),
+        tables.last_emit_bit.reshape(-1), tables.left, tables.right,
+        tables.letter, tables.state_of_node, tables.node_of_state, tables.root,
+        out, out_cap, resume))
+    if r < 0:
+        raise RuntimeError(f"huffc_decode failed: {r}")
+    return out[:r].tobytes(), int(resume[0])
 
 
 def decode_blocks(
