@@ -20,9 +20,12 @@ Phases (any failure exits non-zero and prints no result line):
    2 bytes (the shapes of the TPU's flat-layout kernel, K6); general-tree
    decode (K4) with non-canonical trees on textlike at the main path's
    shape, 4 MiB uniform random, a 2-letter alphabet, the Fibonacci file
-   (32-bit codes), blocks cut short and rows of random words that are not
-   codes; histograms (K3) from 1 B to 100 MiB.  Kernel, plain and
-   library-call times at the main path's shapes;
+   (32-bit codes) and blocks cut short; K2 and K4 on rows of random words
+   that are not codes, and on host-written ``.hf2`` payloads at
+   ``block_len`` 1000 and 2048; histograms (K3) from 1 B to 100 MiB.  The
+   decoders' first-level table size k, rows per thread block n and the
+   share of the main input's symbols that escape the table; kernel, plain
+   and library-call times at the main path's shapes;
 4. the main paths, ``tpuhuff_torch.io`` on the device, each run with every
    launch count set to 0 just before it and read just after:
    (a) canonical containers of 100 MiB of textlike data (seed 42), a
@@ -195,11 +198,14 @@ def main() -> None:
         read_decompress_write_hf2_host,
     )
     from tpuhuff_torch.kernels import (
+        LUT_BITS,
         _build,
         decode_rows,
         decode_rows_general,
         decode_rows_general_reference,
         decode_rows_reference,
+        decode_tile_rows,
+        decoder_for,
         encode_blocks,
         encode_blocks_reference,
         histogram,
@@ -207,6 +213,7 @@ def main() -> None:
         make_canonical_decode_tables,
         make_decode_tables,
         make_encode_tables,
+        payload_to_lane_words,
     )
 
     # -- phase 1: environment ------------------------------------------------
@@ -261,14 +268,17 @@ def main() -> None:
 
     def encode_rows(data, tree, valid=None):
         """K1 over ``data`` as LANE-byte lanes: ``(lanes, valid, tables,
-        rows, bit0, bits)`` ready for a decoder."""
+        (words, bits, miss), rows, bit0)``, the rows ready for a decoder."""
         etab = make_encode_tables(*tree.encode_tables()).to(dev)
         B = data.size // LANE
         lanes = torch.from_numpy(data[: B * LANE].reshape(B, LANE)).to(dev)
         if valid is None:
             valid = torch.full((B,), LANE, dtype=torch.int32, device=dev)
         words, bits, miss = encode_blocks(lanes, valid, etab)
-        rows = torch.nn.functional.pad(words, (0, 1))
+        # the words that hold bits, and one slack word: the width that the
+        # file path's row gather gives these blocks
+        used = max(1, (int(bits.max()) + 31) // 32)
+        rows = torch.nn.functional.pad(words[:, :used], (0, 1)).contiguous()
         bit0 = torch.zeros(B, dtype=torch.int32, device=dev)
         return lanes, valid, etab, (words, bits, miss), rows, bit0
 
@@ -381,19 +391,76 @@ def main() -> None:
             f"code {etab.max_len} bits, non-canonical tree, err {err}")
         if name == "textlike":
             gtab_text = gtab
-    # rows of random words: not codes, but the two must still agree
+    # rows of random words: not codes, but each kernel must still agree
+    # with its plain version
     B, W = 1 << 14, 40
     rows = torch.from_numpy(rng.integers(0, 1 << 32, (B, W), dtype=np.uint64)
                             .astype(np.uint32).view(np.int32)).to(dev)
     bit0 = torch.from_numpy(rng.integers(0, 32, B).astype(np.int32)).to(dev)
     nbits = torch.from_numpy(rng.integers(0, 32 * (W - 1), B)
                              .astype(np.int32)).to(dev)
-    out = decode_rows_general(rows, bit0, nbits, gtab_text, LANE)
-    plain = decode_rows_general_reference(rows, bit0, nbits, gtab_text, LANE)
-    torch.cuda.synchronize()
-    err = max_err(torch, out, plain)
-    errs["decode_general"] = max(errs["decode_general"], err)
-    log(f"phase 3: decode_general on {B} rows of random words: err {err}")
+    decoders = {  # key: (wrapper, plain version)
+        "decode": (decode_rows, decode_rows_reference),
+        "decode_general": (decode_rows_general,
+                           decode_rows_general_reference)}
+    dtab_text = make_canonical_decode_tables(tree_of(text)).to(dev)
+    for key, tab in (("decode", dtab_text), ("decode_general", gtab_text)):
+        decode, plain_fn = decoders[key]
+        out = decode(rows, bit0, nbits, tab, LANE)
+        plain = plain_fn(rows, bit0, nbits, tab, LANE)
+        torch.cuda.synchronize()
+        err = max_err(torch, out, plain)
+        errs[key] = max(errs[key], err)
+        log(f"phase 3: {key} on {B} rows of random words: err {err}")
+
+    # host-written .hf2 payloads at block_len 1000 and 2048, gathered into
+    # rows as the file path does: K2 on the canonical tree, K4 on the
+    # non-canonical one; whole blocks must restore their source
+    head4 = text[: 4 << 20]
+    with tempfile.TemporaryDirectory(prefix="tpuhuff_chip_smoke_") as tmp:
+        src = os.path.join(tmp, "src.bin")
+        head4.tofile(src)
+        general = {"canonical": False, "tree": general_tree_of(head4)}
+        for block_len in (1000, 2048):
+            for key, kw in (("decode", {}), ("decode_general", general)):
+                dst = os.path.join(tmp, f"{block_len}.hf2")
+                read_compress_write_hf2_host(src, dst, block_len=block_len,
+                                             max_code_len=32, **kw)
+                with open(dst, "rb") as fp:
+                    hdr = read_hf2_header(fp)
+                    fp.seek(hdr.payload_offset)
+                    payload = fp.read()
+                decode, plain_fn = decoders[key]
+                if decoder_for(hdr.tree)[0] is not decode:
+                    fail(f"{key} at block_len {block_len}: wrong decoder")
+                tab = decoder_for(hdr.tree)[1].to(dev)
+                ends = hdr.end_bits.astype(np.int64)
+                starts = np.concatenate([[0], ends[:-1]])
+                rows_np, bit0_np = payload_to_lane_words(payload, starts, ends,
+                                                         block_len)
+                rows = torch.from_numpy(rows_np.view(np.int32)).to(dev)
+                bit0 = torch.from_numpy(bit0_np).to(dev)
+                nbits = torch.from_numpy((ends - starts).astype(np.int32)
+                                         ).to(dev)
+                nbits[2::7] = (nbits[2::7] - 9).clamp(min=0)  # cut short
+                out = decode(rows, bit0, nbits, tab, block_len)
+                plain = plain_fn(rows, bit0, nbits, tab, block_len)
+                torch.cuda.synchronize()
+                err = max_err(torch, out, plain)
+                errs[key] = max(errs[key], err)
+                B = out.shape[0] - 1  # the last block is short
+                keep = np.ones(B, bool)
+                keep[2::7] = False
+                if not np.array_equal(out[:B].cpu().numpy()[keep],
+                                      head4[: B * block_len].reshape(
+                                          B, block_len)[keep]):
+                    fail(f"{key} at block_len {block_len}: whole blocks do "
+                         "not restore their source")
+                n = decode_tile_rows(*rows.shape, block_len,
+                                     key == "decode_general", dev)
+                log(f"phase 3: {key} at block_len {block_len}: "
+                    f"{rows.shape[0]} blocks of {rows.shape[1]} words, "
+                    f"k {LUT_BITS}, n {n} blocks per thread block, err {err}")
 
     text_dev = torch.from_numpy(text).to(dev)
     for n in (1, 15, 4097, (1 << 20) + 3, MAIN_MB << 20):
@@ -415,7 +482,7 @@ def main() -> None:
     lanes, valid, etab, (words, bits, _), rows, bit0 = encode_rows(
         main, tree_of(text))
     gtree = general_tree_of(text)
-    _, _, _, (_, gbits, _), grows, _ = encode_rows(main, gtree)
+    _, _, _, (gwords, gbits, _), grows, _ = encode_rows(main, gtree)
     s = {"lanes": lanes, "valid": valid, "etab": etab, "words": words,
          "rows": rows, "bit0": bit0, "nbits": bits,
          "dtab": make_canonical_decode_tables(tree_of(text)).to(dev),
@@ -423,6 +490,18 @@ def main() -> None:
          "gtab": make_decode_tables(gtree).to(dev)}
     if not torch.equal(bits, gbits):  # same code lengths, same bit counts
         fail("canonical and non-canonical trees give other bit counts")
+    # the decoders' first-level table: a symbol escapes it where its code is
+    # longer than k bits (both trees have the same code lengths)
+    code_lens = tree_of(text).encode_tables()[0].astype(np.int64)
+    counts = np.bincount(main, minlength=256)
+    escape = counts[code_lens > LUT_BITS].sum() / counts.sum()
+    n2, n4 = (decode_tile_rows(*r.shape, LANE, general, dev)
+              for r, general in ((rows, False), (grows, True)))
+    log(f"phase 3: decoders' first-level table k {LUT_BITS} "
+        f"({1 << LUT_BITS} entries): {escape:.6%} of the main input's "
+        f"symbols escape it (max code {code_lens.max()} bits); n {n2} (K2) "
+        f"and {n4} (K4) blocks per thread block at W {rows.shape[1]}, "
+        f"block_len {LANE}")
     hist_chunk = text_dev[: 64 << 20]
     timing = {  # (kernel ms, plain ms, library ms or None)
         "encode": (cuda_ms(torch, lambda: encode_blocks(
@@ -484,7 +563,17 @@ def main() -> None:
         f"{timing['encode'][0]:.4f} + K3 {timing['histogram'][0]:.4f} on "
         f"{hist_chunk.numel()} B); bound {distinct:.4f} ms were the operand "
         f"a distinct tensor of the same size [{card}]")
-    del s, lanes, valid, words, rows, grows, text_dev, hist_chunk
+    # the decoders on rows as wide as K1's output (and one slack word): the
+    # time of the row-staging kernels grows with the row width
+    wide = {"decode": (decode_rows, s["words"], s["nbits"], s["dtab"]),
+            "decode_general": (decode_rows_general, gwords, s["gnbits"],
+                               s["gtab"])}
+    for k, (fn, w, nb, tab) in wide.items():
+        w = torch.nn.functional.pad(w, (0, 1))
+        ms = cuda_ms(torch, lambda: fn(w, s["bit0"], nb, tab, LANE))
+        log(f"phase 3: {k} on rows of K1's full width ({w.shape[1]} words, "
+            f"not {s['rows'].shape[1]}): kernel {ms:.4f} ms [{card}]")
+    del s, lanes, valid, words, rows, grows, gwords, wide, text_dev, hist_chunk
     torch.cuda.synchronize()
 
     # -- phase 4: the main paths ---------------------------------------------

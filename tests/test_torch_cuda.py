@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpuhuff_torch import native
 from tpuhuff_torch.core.canonical import build_tree_for_device, canonicalize
 from tpuhuff_torch.core.tree import HuffTree
 from tpuhuff_torch.core.weights import ByteWeights
@@ -25,6 +26,7 @@ from tpuhuff_torch.kernels import (
     make_canonical_decode_tables,
     make_decode_tables,
     make_encode_tables,
+    payload_to_lane_words,
 )
 
 pytestmark = pytest.mark.cuda
@@ -86,59 +88,65 @@ def test_encode_hist_kernel_matches_plain(dev, N, operand):
         assert torch.equal(g, w)
 
 
-def test_decode_kernel_matches_plain(dev):
-    rng = np.random.default_rng(1)
-    B, N = 3000, 256
-    data = rng.zipf(1.3, (B, N)).clip(0, 255).astype(np.uint8)
-    tree = _tree(data.reshape(-1))
-    etab = make_encode_tables(*tree.encode_tables()).to(dev)
-    words, bits, _ = encode_blocks(torch.from_numpy(data).to(dev),
-                                   torch.full((B,), N, dtype=torch.int32,
-                                              device=dev), etab)
-    rows = torch.nn.functional.pad(words, (0, 1))
-    bit0 = torch.zeros(B, dtype=torch.int32, device=dev)
-    bits[::3] -= 5  # cut some blocks short
-    bits.clamp_(min=0)
-    dtab = make_canonical_decode_tables(tree).to(dev)
-    got = decode_rows(rows, bit0, bits, dtab, N)
-    want = decode_rows_reference(rows, bit0, bits, dtab, N)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
-
-
+@pytest.mark.parametrize("rows_kind", ["codes", "cut short", "random words"])
+@pytest.mark.parametrize("block_len", [256, 1000, 2048, 100, 255])
 @pytest.mark.parametrize("alphabet", [2, 40, 256])
-def test_decode_general_kernel_matches_plain(dev, alphabet):
-    """K4 on a non-canonical tree (the device tree, mirrored if canonical):
-    bit-exact against its plain version, on cut-short blocks and on rows of
-    random words, and the full blocks decode to their source."""
-    rng = np.random.default_rng(alphabet)
-    B, N = 3000, 256
-    data = (rng.zipf(1.3, (B, N)) % alphabet).astype(np.uint8)
+@pytest.mark.parametrize("decoder", ["K2", "K4"])
+def test_decode_kernels_match_plain(dev, decoder, alphabet, block_len,
+                                    rows_kind):
+    """K2 on the canonical tree and K4 on a non-canonical one (the device
+    tree, mirrored if canonical): bit-exact against the plain version on
+    whole blocks, on blocks cut short and on rows of random words, with
+    ``rows`` a view 4 bytes past a 16-byte boundary; whole blocks decode to
+    their source, and the wrapper counts one launch.  Block lengths 100 and
+    255 leave the output in 4- and 1-byte stores and a last group of 4 and
+    15 symbols."""
+    rng = np.random.default_rng(alphabet * 7 + block_len + len(rows_kind))
+    B = 3000 if block_len == 256 else 700
+    data = (rng.zipf(1.3, (B, block_len)) % alphabet).astype(np.uint8)
     tree = build_tree_for_device(
         ByteWeights(np.bincount(data.reshape(-1), minlength=256)), 32)[0]
-    if make_canonical_decode_tables(tree) is not None:
-        tree = HuffTree(tree.right, tree.left, tree.letters, tree.weights,
-                        tree.root)
-    assert make_canonical_decode_tables(tree) is None
-    etab = make_encode_tables(*tree.encode_tables()).to(dev)
-    lanes = torch.from_numpy(data).to(dev)
-    words, bits, _ = encode_blocks(lanes, torch.full((B,), N, dtype=torch.int32,
-                                                     device=dev), etab)
-    rows = torch.nn.functional.pad(words, (0, 1))
-    bit0 = torch.zeros(B, dtype=torch.int32, device=dev)
-    gtab = make_decode_tables(tree).to(dev)
-    full = decode_rows_general(rows, bit0, bits, gtab, N)
+    if decoder == "K2":
+        tree = canonicalize(tree)
+        wrapper, plain = decode_rows, decode_rows_reference
+        tables = make_canonical_decode_tables(tree).to(dev)
+    else:
+        if make_canonical_decode_tables(tree) is not None:
+            tree = HuffTree(tree.right, tree.left, tree.letters, tree.weights,
+                            tree.root)
+        assert make_canonical_decode_tables(tree) is None
+        wrapper, plain = decode_rows_general, decode_rows_general_reference
+        tables = make_decode_tables(tree).to(dev)
+    payload, _, bit_lens = native.encode_blocks_host(
+        data, block_len, *tree.encode_tables())
+    ends = np.cumsum(bit_lens.astype(np.int64))
+    starts = ends - bit_lens.astype(np.int64)
+    rows_np, bit0_np = payload_to_lane_words(payload, starts, ends, block_len)
+    W = rows_np.shape[1]
+    if rows_kind == "random words":
+        rows_np = rng.integers(0, 1 << 32, rows_np.shape, dtype=np.uint64
+                               ).astype(np.uint32)
+        bit0_np = rng.integers(0, 32, B).astype(np.int32)
+    nbits_np = (ends - starts).astype(np.int32)
+    if rows_kind == "cut short":
+        nbits_np[::3] = np.maximum(nbits_np[::3] - 5, 0)
+    if rows_kind == "random words":
+        nbits_np = rng.integers(0, 32 * (W - 1), B).astype(np.int32)
+    flat = torch.zeros(B * W + 8, dtype=torch.int32, device=dev)
+    off = (-flat.data_ptr() // 4) % 4 + 1  # 4 bytes past a 16-byte boundary
+    rows = flat[off: off + B * W].view(B, W)
+    assert rows.data_ptr() % 16 == 4
+    rows.copy_(torch.from_numpy(rows_np.view(np.int32)))
+    bit0 = torch.from_numpy(bit0_np).to(dev)
+    nbits = torch.from_numpy(nbits_np).to(dev)
+    before = wrapper.launches
+    got = wrapper(rows, bit0, nbits, tables, block_len)
     torch.cuda.synchronize()
-    assert torch.equal(full, lanes)
-    bits[::3] = (bits[::3] - 5).clamp(min=0)  # cut some blocks short
-    noise = torch.from_numpy(rng.integers(0, 1 << 32, tuple(rows.shape),
-                                          dtype=np.uint64).astype(np.uint32)
-                             .view(np.int32)).to(dev)
-    for r in (rows, noise):
-        got = decode_rows_general(r, bit0, bits, gtab, N)
-        want = decode_rows_general_reference(r, bit0, bits, gtab, N)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want)
+    assert wrapper.launches == before + 1
+    want = plain(rows, bit0, nbits, tables, block_len)
+    assert torch.equal(got, want)
+    if rows_kind == "codes":
+        assert torch.equal(got.cpu(), torch.from_numpy(data))
 
 
 @pytest.mark.parametrize("n", [1, 15, 4096 + 7, (8 << 20) + 5])

@@ -7,8 +7,12 @@ non-canonical tree, with ``TPUHUFF_DECODER=pallas`` (the Pallas kernel
 ``levels`` and ``max_sym_bits`` that function passes) and with
 ``TPUHUFF_DECODER=xla`` (``decode_blocks_device``).  Tolerance: none, the
 outputs are uint8 and must be equal, including the zeros past a block's
-``nbits`` and on rows of random words that are not codes.
+``nbits`` and on rows of random words that are not codes.  K4's
+first-level table is held against the plain wrapper's search and against
+the JAX package's interval tables built from the same counts.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -24,11 +28,14 @@ from tpuhuff_torch.core import canonical as port_canonical
 from tpuhuff_torch.core.tree import HuffTree
 from tpuhuff_torch.core.weights import ByteWeights
 from tpuhuff_torch.kernels import (
+    LUT_BITS,
     GeneralDecodeTables,
     decode_hf2_device,
     decode_rows,
     decode_rows_general,
+    decode_rows_general_reference,
     decoder_for,
+    first_level_table,
     make_canonical_decode_tables,
     make_decode_tables,
     payload_to_lane_words,
@@ -256,10 +263,155 @@ def test_decode_general_rejects_bad_operands():
     vec = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(TypeError):
         decode_rows_general(rows, vec, vec, GeneralDecodeTables(
-            tables.thr, tables.sym.int(), tables.len), 16)
+            tables.thr, tables.sym.int(), tables.len, tables.lut), 16)
     with pytest.raises(ValueError):
         decode_rows_general(rows, vec[:3], vec, tables, 16)
     with pytest.raises(ValueError):
         decode_rows_general(rows, vec, vec, tables, 0)
     with pytest.raises(OverflowError):
         make_decode_tables(HuffTree.from_weights(ByteWeights(_fib_counts())))
+
+
+def _lut_trees(alphabet):
+    """(JAX tree, port tree) from the same counts, not canonical where a
+    tree can be otherwise (see :func:`_trees`); "fib": 32-bit codes."""
+    if alphabet == "fib":
+        return _trees(_fib_counts(), limit=32)
+    rng = np.random.default_rng(alphabet)
+    data = (rng.zipf(1.4, 6000) % alphabet) * 251 % 256
+    return _trees(np.bincount(data, minlength=256))
+
+
+def _prefix_ends(k):
+    """The lowest and the highest u32 window of each k-bit prefix."""
+    lo = np.arange(1 << k, dtype=np.uint64) << np.uint64(32 - k)
+    return lo, lo | np.uint64((1 << (32 - k)) - 1)
+
+
+def _plain_pairs(tables, windows):
+    """(symbol, length) that the plain wrapper gives each u32 window, one
+    one-word row per window: the symbol at nbits = 32, the length as the
+    least nbits at which a table whose every symbol is 1 still emits."""
+    B = windows.size
+    rows = as_i32(windows.reshape(B, 1))
+    bit0 = torch.zeros(B, dtype=torch.int32)
+
+    def emit(tabs, nbits):
+        return decode_rows_general_reference(rows, bit0, torch.full(
+            (B,), nbits, dtype=torch.int32), tabs, 1)[:, 0].numpy()
+
+    ones = dataclasses.replace(tables, sym=torch.ones_like(tables.sym))
+    emitted = sum(emit(ones, m).astype(np.int64) for m in range(33))
+    return emit(tables, 32).astype(np.int64), 33 - emitted
+
+
+def _search(thr, sym, lens):
+    """The interval search of the contract on numpy windows: (symbol,
+    length, leaf index)."""
+    def rule(w):
+        idx = np.searchsorted(thr.astype(np.uint64), w, side="right") - 1
+        idx = np.maximum(idx, 0)
+        return sym.astype(np.int64)[idx], lens.astype(np.int64)[idx], idx
+
+    return rule
+
+
+def _jax_search_table(jax_tree, k):
+    """K4's first-level table from the JAX package's interval tables: an
+    entry resolves where both ends of its prefix land on leaves of the
+    same (symbol, length) with length <= k."""
+    thr, sym4, len4 = (np.asarray(a) for a in
+                       jax_decode.make_decode_tables(jax_tree))
+    rule = _search(thr, *(a.astype("<u4").view(np.uint8)
+                          for a in (sym4, len4)))
+    (s_lo, l_lo, _), (s_hi, l_hi, _) = (rule(w) for w in _prefix_ends(k))
+    ok = (s_lo == s_hi) & (l_lo == l_hi) & (l_lo >= 1) & (l_lo <= k)
+    return np.where(ok, s_lo | (l_lo << 8), 0)
+
+
+@pytest.mark.parametrize("k", [10, 12, 14])
+@pytest.mark.parametrize("alphabet", [1, 2, 17, 256, "fib"])
+def test_first_level_table_matches_search(alphabet, k):
+    """Every resolved entry of K4's table is the plain search's (symbol,
+    length <= k) at both ends of its prefix, and every escape is a prefix
+    where it is not; the table equals the one from the JAX package's
+    interval tables."""
+    jax_tree, port_tree = _lut_trees(alphabet)
+    tables = make_decode_tables(port_tree)
+    table = first_level_table(tables, k)
+    assert table.dtype == torch.int16 and table.shape == (1 << k,)
+    if k == LUT_BITS:  # the table the kernel takes
+        assert torch.equal(tables.lut, table)
+    lut = table.numpy().astype(np.int64)
+    (s_lo, l_lo), (s_hi, l_hi) = (_plain_pairs(tables, w)
+                                  for w in _prefix_ends(k))
+    same = (s_lo == s_hi) & (l_lo == l_hi) & (l_lo >= 1) & (l_lo <= k)
+    hit = lut != 0
+    assert np.array_equal(hit, same)
+    assert np.array_equal(lut[hit] & 255, s_lo[hit])
+    assert np.array_equal(lut[hit] >> 8, l_lo[hit])
+    assert np.array_equal(lut, _jax_search_table(jax_tree, k))
+    if port_tree.max_code_len() <= k:
+        assert hit.all()  # every code fits: no prefix escapes
+
+
+@pytest.mark.parametrize("k", [10, 12, 14])
+def test_first_level_table_of_intervals_of_no_tree(k):
+    """Interval tables that no full tree gives (leaf boundaries inside
+    k-bit prefixes, lengths that do not match them): where the two ends of
+    a prefix disagree, the entry escapes, and every resolved entry is the
+    plain search's on its whole prefix.  The symbols are distinct, as a
+    tree's are, so equal pairs at both ends mean one leaf."""
+    rng = np.random.default_rng(k)
+    thr = np.sort(rng.integers(0, 1 << 32, 256, dtype=np.uint64)
+                  ).astype(np.uint32)
+    sym = rng.permutation(256).astype(np.uint8)
+    lens = rng.integers(1, 20, 256).astype(np.uint8)
+    thr[:4] = [0, 1 << 27, (1 << 27) + 5, 1 << 31]  # wide and narrow leaves
+    tables = GeneralDecodeTables(as_i32(thr), torch.from_numpy(sym),
+                                 torch.from_numpy(lens))
+    lut = first_level_table(tables, k).numpy().astype(np.int64)
+    (s_lo, l_lo), (s_hi, l_hi) = (_plain_pairs(tables, w)
+                                  for w in _prefix_ends(k))
+    same = (s_lo == s_hi) & (l_lo == l_hi) & (l_lo >= 1) & (l_lo <= k)
+    hit = lut != 0
+    assert np.array_equal(hit, same)
+    assert np.array_equal(lut[hit], s_lo[hit] | (l_lo[hit] << 8))
+    assert hit.any() and not hit.all()
+    assert ((l_lo <= k) & ~same).any()  # prefixes that straddle
+    # and inside each resolved prefix: random windows give the same pair
+    lo = _prefix_ends(k)[0][hit]
+    for _ in range(2):
+        inner = lo | rng.integers(0, 1 << (32 - k), lo.size, dtype=np.uint64)
+        s_in, l_in = _plain_pairs(tables, inner)
+        assert np.array_equal(lut[hit], s_in | (l_in << 8))
+
+
+@pytest.mark.parametrize("alphabet", [2, 17, 256, "fib"])
+def test_decode_hf2_device_on_cpu_matches_jax(alphabet, tmp_path):
+    """A JAX-written container under a non-canonical tree decodes through
+    the port's ``decode_hf2_device(..., device="cpu")`` to the JAX
+    decoder's bytes."""
+    from tpuhuff.io.hff import read_hf2_header as jax_read_header
+    from tpuhuff.io.stream import read_compress_write_hf2
+
+    from tpuhuff_torch.io.hff import read_hf2_header
+
+    jax_tree, _ = _lut_trees(alphabet)
+    letters = np.array(sorted(int(c) for c in jax_tree.read_codes()),
+                       dtype=np.uint8)
+    data = np.random.default_rng(5).choice(letters, 3000)
+    src, hf2 = tmp_path / "a.bin", tmp_path / "a.hf2"
+    src.write_bytes(data.tobytes())
+    read_compress_write_hf2(str(src), str(hf2), block_len=256, tree=jax_tree,
+                            canonical=False)
+    with open(hf2, "rb") as fp:
+        jax_hdr = jax_read_header(fp)
+        fp.seek(0)
+        hdr = read_hf2_header(fp)
+        fp.seek(hdr.payload_offset)
+        payload = fp.read()
+    assert make_canonical_decode_tables(hdr.tree) is None
+    want = jax_decode.decode_hf2_device(jax_hdr, payload)
+    assert decode_hf2_device(hdr, payload, device="cpu") == want
+    assert want == data.tobytes()

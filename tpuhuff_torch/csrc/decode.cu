@@ -12,89 +12,93 @@
 //   the symbol perm[idx] is emitted while consumed + len <= nbits[b], and
 //   every later position of the block's block_len outputs is 0.
 //
-// What bounds it on an H100: the serial dependency of each symbol on the
-// previous code length (the cursor), not bandwidth: a block reads its
-// ~block_len * 14 / 8 payload bytes and writes block_len bytes.  Parallelism
-// comes from blocks: 100 MiB at block 256 is 409,600 independent threads,
-// enough to fill every SM many times over and hide the load latency.
-// The TPU kernel's 8x128 cells, buffer rolls, select trees and MXU
-// transposes existed because the TPU has no per-lane gather; here a thread
-// reads its two window words directly, and the tables (ub, dd, perm) sit in
-// shared memory.  Once a block's next code would pass nbits the cursor can
-// never move again, so the rest of the block is zero-filled at once.
+// What bounds it on an H100, and the design: decode_common.cuh, the body
+// this kernel shares with K4 (decode_general.cu).  The first-level table
+// `lut` (kernels.decode.first_level_table) resolves every window whose top
+// k bits fix (symbol, length) with length <= k; any other window runs the
+// ladder above, so the result equals the plain version on every window,
+// codes or not.  The TPU kernel's 8x128 cells, buffer rolls, select trees
+// and MXU transposes existed because the TPU has no per-lane gather; here
+// the table, the ladder (ub, dd) and perm sit in shared memory.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "decode_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+using tpuhuff_decode::Params;
 
-__global__ void __launch_bounds__(kThreads)
-decode_rows_kernel(const uint32_t* __restrict__ rows,
-                   const int32_t* __restrict__ bit0,
-                   const int32_t* __restrict__ nbits,
-                   const uint32_t* __restrict__ ub_g,
-                   const int32_t* __restrict__ dd_g,
-                   const uint8_t* __restrict__ perm_g,
-                   uint8_t* __restrict__ out, int B, int W, int block_len,
-                   int max_len) {
-  __shared__ uint32_t s_ub[32];
-  __shared__ int32_t s_dd[32];
-  __shared__ uint8_t s_perm[256];
-  const int tid = threadIdx.x;
-  for (int i = tid; i < 256; i += blockDim.x) s_perm[i] = perm_g[i];
-  if (tid < 32) {
-    s_ub[tid] = ub_g[tid];
-    s_dd[tid] = dd_g[tid];
-  }
-  __syncthreads();
+struct Ladder {
+  struct Args {
+    const uint32_t* ub;
+    const int32_t* dd;
+    const uint8_t* perm;
+    int max_len;
+  };
+  static constexpr int kSmemBytes = 32 * 4 + 32 * 4 + 256;  // ub, dd, perm
 
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * kThreads + tid;
-  if (b >= B) return;
-  const uint32_t* row = rows + b * W;
-  uint8_t* o = out + b * block_len;
-  const int64_t nb = nbits[b];
-  int64_t cur = bit0[b];
-  int64_t consumed = 0;
-  int i = 0;
-  for (; i < block_len; ++i) {
-    const int64_t q = cur >> 5;
-    const uint32_t rr = static_cast<uint32_t>(cur & 31);
-    const uint32_t w0 = q < W ? row[q] : 0u;
-    const uint32_t w1 = q + 1 < W ? row[q + 1] : 0u;
-    const uint32_t window = rr ? (w0 << rr) | (w1 >> (32u - rr)) : w0;
-    int len = 1;
-    int32_t delta = s_dd[0];
-    for (int L = 1; L < max_len; ++L) {
-      const int ind = window >= s_ub[L - 1];
-      len += ind;
-      delta += ind * s_dd[L];
+  const uint32_t* ub;
+  const int32_t* dd;
+  const uint8_t* perm;
+  int max_len;
+
+  __device__ static Ladder load(uint8_t* s, const Args& a, int tid, int nt) {
+    uint32_t* ub = reinterpret_cast<uint32_t*>(s);
+    int32_t* dd = reinterpret_cast<int32_t*>(s + 128);
+    uint8_t* perm = s + 256;
+    for (int i = tid; i < 256; i += nt) perm[i] = a.perm[i];
+    for (int i = tid; i < 32; i += nt) {
+      ub[i] = a.ub[i];
+      dd[i] = a.dd[i];
     }
-    if (consumed + len > nb) break;
-    // len in [1, 32], so the shift is in [0, 31]
-    const uint32_t idx =
-        ((window >> (32 - len)) + static_cast<uint32_t>(delta)) & 255u;
-    o[i] = s_perm[idx];
-    cur += len;
-    consumed += len;
+    return {ub, dd, perm, a.max_len};
   }
-  for (; i < block_len; ++i) o[i] = 0;
+
+  // the ladder of the contract, on any window
+  __device__ __forceinline__ void resolve(uint32_t window, uint32_t& sym,
+                                          uint32_t& len) const {
+    int l = 1;
+    uint32_t delta = static_cast<uint32_t>(dd[0]);  // wraps, as the index does
+    for (int L = 1; L < max_len; ++L) {
+      const uint32_t ind = window >= ub[L - 1];
+      l += static_cast<int>(ind);
+      delta += ind * static_cast<uint32_t>(dd[L]);
+    }
+    // l in [1, 32], so the shift is in [0, 31]
+    sym = perm[((window >> (32 - l)) + delta) & 255u];
+    len = static_cast<uint32_t>(l);
+  }
+};
+
+__global__ void __launch_bounds__(tpuhuff_decode::kMaxThreads)
+decode_rows_kernel(Params p, Ladder::Args a) {
+  tpuhuff_decode::decode_tiles<Ladder>(p, a);
 }
 
 }  // namespace
 
 extern "C" int tpuhuff_decode_rows(const void* rows, const void* bit0,
                                    const void* nbits, const void* ub,
-                                   const void* dd, const void* perm, void* out,
-                                   int B, int W, int block_len, int max_len,
-                                   void* stream) {
-  if (B <= 0) return 0;
-  const dim3 grid((B + kThreads - 1) / kThreads);
-  decode_rows_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(rows), static_cast<const int32_t*>(bit0),
-      static_cast<const int32_t*>(nbits), static_cast<const uint32_t*>(ub),
-      static_cast<const int32_t*>(dd), static_cast<const uint8_t*>(perm),
-      static_cast<uint8_t*>(out), B, W, block_len, max_len);
-  return static_cast<int>(cudaGetLastError());
+                                   const void* dd, const void* perm,
+                                   const void* lut, void* out, int B, int W,
+                                   int block_len, int max_len, void* stream) {
+  Params p{};
+  p.rows = static_cast<const uint32_t*>(rows);
+  p.bit0 = static_cast<const int32_t*>(bit0);
+  p.nbits = static_cast<const int32_t*>(nbits);
+  p.lut = static_cast<const uint16_t*>(lut);
+  p.out = static_cast<uint8_t*>(out);
+  p.B = B;
+  p.W = W;
+  p.block_len = block_len;
+  const Ladder::Args a{static_cast<const uint32_t*>(ub),
+                       static_cast<const int32_t*>(dd),
+                       static_cast<const uint8_t*>(perm), max_len};
+  return tpuhuff_decode::launch(decode_rows_kernel, p, a, Ladder::kSmemBytes,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// Blocks per thread block that tpuhuff_decode_rows takes (decode_common.cuh).
+extern "C" int tpuhuff_decode_rows_tile(int B, int W, int block_len) {
+  return tpuhuff_decode::tile_rows(decode_rows_kernel, Ladder::kSmemBytes, B,
+                                   W, block_len);
 }

@@ -17,72 +17,62 @@
 //   count, so searching all 256 entries lands on the same (sym, len) as the
 //   TPU kernel's search over the low 2^levels entries.
 //
-// What bounds it on an H100: the serial cursor, as in K2, plus the search:
-// each symbol costs 8 dependent shared-memory loads (a branch-free halving
-// search over 256 entries) where K2 pays max_len - 1 independent compares.
-// A block reads its ~block_len * avg_len / 8 payload bytes and writes
-// block_len bytes, far below the card's memory rate.  Parallelism comes from
-// blocks (409,600 threads at 100 MiB, block 256).  The TPU kernel's 8x128
-// cells, buffer roll, select trees, packed store and MXU de-interleave
-// existed for want of a per-lane gather; here a thread reads its two window
-// words directly and the tables (thr, sym, len: 1.5 KiB) sit in shared
-// memory.  Once a block's next code would pass nbits the cursor can never
-// move again, so the rest of the block is zero-filled at once.
+// What bounds it on an H100, and the design: decode_common.cuh, the body
+// this kernel shares with K2.  Before the first-level table every symbol
+// paid 8 dependent shared loads of the halving search below; now a window
+// whose top k bits fix (symbol, length) with length <= k costs one load of
+// `lut` (kernels.decode.first_level_table), and only the others run the
+// search, so the result equals the plain version on every window, codes or
+// not.  The TPU kernel's 8x128 cells, buffer roll, select trees, packed
+// store and MXU de-interleave existed for want of a per-lane gather; here
+// the tables (thr, sym, len: 1.5 KiB, and lut) sit in shared memory.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "decode_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+using tpuhuff_decode::Params;
 
-__global__ void __launch_bounds__(kThreads)
-decode_rows_general_kernel(const uint32_t* __restrict__ rows,
-                           const int32_t* __restrict__ bit0,
-                           const int32_t* __restrict__ nbits,
-                           const uint32_t* __restrict__ thr_g,
-                           const uint8_t* __restrict__ sym_g,
-                           const uint8_t* __restrict__ len_g,
-                           uint8_t* __restrict__ out, int B, int W,
-                           int block_len) {
-  __shared__ uint32_t s_thr[256];
-  __shared__ uint8_t s_sym[256];
-  __shared__ uint8_t s_len[256];
-  const int tid = threadIdx.x;
-  for (int i = tid; i < 256; i += blockDim.x) {
-    s_thr[i] = thr_g[i];
-    s_sym[i] = sym_g[i];
-    s_len[i] = len_g[i];
+struct Search {
+  struct Args {
+    const uint32_t* thr;
+    const uint8_t* sym;
+    const uint8_t* len;
+  };
+  static constexpr int kSmemBytes = 256 * 4 + 256 + 256;  // thr, sym, len
+
+  const uint32_t* thr;
+  const uint8_t* sym;
+  const uint8_t* len;
+
+  __device__ static Search load(uint8_t* s, const Args& a, int tid, int nt) {
+    uint32_t* thr = reinterpret_cast<uint32_t*>(s);
+    uint8_t* sym = s + 1024;
+    uint8_t* len = s + 1280;
+    for (int i = tid; i < 256; i += nt) {
+      thr[i] = a.thr[i];
+      sym[i] = a.sym[i];
+      len[i] = a.len[i];
+    }
+    return {thr, sym, len};
   }
-  __syncthreads();
 
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * kThreads + tid;
-  if (b >= B) return;
-  const uint32_t* row = rows + b * W;
-  uint8_t* o = out + b * block_len;
-  const int64_t nb = nbits[b];
-  int64_t cur = bit0[b];
-  int64_t consumed = 0;
-  int i = 0;
-  for (; i < block_len; ++i) {
-    const int64_t q = cur >> 5;
-    const uint32_t rr = static_cast<uint32_t>(cur & 31);
-    const uint32_t w0 = q < W ? row[q] : 0u;
-    const uint32_t w1 = q + 1 < W ? row[q + 1] : 0u;
-    const uint32_t window = rr ? (w0 << rr) | (w1 >> (32u - rr)) : w0;
-    // the largest idx with thr[idx] <= window (0 if none): thr ascends
+  // the largest idx with thr[idx] <= window (0 if none): thr ascends
+  __device__ __forceinline__ void resolve(uint32_t window, uint32_t& s,
+                                          uint32_t& l) const {
     int idx = 0;
 #pragma unroll
     for (int step = 128; step >= 1; step >>= 1) {
-      idx += (s_thr[idx + step] <= window) ? step : 0;
+      idx += (thr[idx + step] <= window) ? step : 0;
     }
-    const int len = s_len[idx];
-    if (consumed + len > nb) break;
-    o[i] = s_sym[idx];
-    cur += len;
-    consumed += len;
+    s = sym[idx];
+    l = len[idx];
   }
-  for (; i < block_len; ++i) o[i] = 0;
+};
+
+__global__ void __launch_bounds__(tpuhuff_decode::kMaxThreads)
+decode_rows_general_kernel(Params p, Search::Args a) {
+  tpuhuff_decode::decode_tiles<Search>(p, a);
 }
 
 }  // namespace
@@ -90,15 +80,27 @@ decode_rows_general_kernel(const uint32_t* __restrict__ rows,
 extern "C" int tpuhuff_decode_rows_general(const void* rows, const void* bit0,
                                            const void* nbits, const void* thr,
                                            const void* sym, const void* len,
-                                           void* out, int B, int W,
-                                           int block_len, void* stream) {
-  if (B <= 0) return 0;
-  const dim3 grid((B + kThreads - 1) / kThreads);
-  decode_rows_general_kernel<<<grid, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(rows), static_cast<const int32_t*>(bit0),
-      static_cast<const int32_t*>(nbits), static_cast<const uint32_t*>(thr),
-      static_cast<const uint8_t*>(sym), static_cast<const uint8_t*>(len),
-      static_cast<uint8_t*>(out), B, W, block_len);
-  return static_cast<int>(cudaGetLastError());
+                                           const void* lut, void* out, int B,
+                                           int W, int block_len, void* stream) {
+  Params p{};
+  p.rows = static_cast<const uint32_t*>(rows);
+  p.bit0 = static_cast<const int32_t*>(bit0);
+  p.nbits = static_cast<const int32_t*>(nbits);
+  p.lut = static_cast<const uint16_t*>(lut);
+  p.out = static_cast<uint8_t*>(out);
+  p.B = B;
+  p.W = W;
+  p.block_len = block_len;
+  const Search::Args a{static_cast<const uint32_t*>(thr),
+                       static_cast<const uint8_t*>(sym),
+                       static_cast<const uint8_t*>(len)};
+  return tpuhuff_decode::launch(decode_rows_general_kernel, p, a,
+                                Search::kSmemBytes,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// Blocks per thread block that tpuhuff_decode_rows_general takes.
+extern "C" int tpuhuff_decode_rows_general_tile(int B, int W, int block_len) {
+  return tpuhuff_decode::tile_rows(decode_rows_general_kernel,
+                                   Search::kSmemBytes, B, W, block_len);
 }

@@ -7,7 +7,8 @@
 * :func:`decode_rows` (``csrc/decode.cu``) — canonical decode of
   independent ``.hf2`` blocks;
 * :func:`decode_rows_general` (``csrc/decode_general.cu``) — the same
-  decode for any prefix tree;
+  decode for any prefix tree (both share ``csrc/decode_common.cuh`` and a
+  first-level table of ``2^LUT_BITS`` entries);
 * :func:`histogram` (``csrc/histogram.cu``) — exact 256-bin byte counts.
 
 A wrapper launches its kernel for CUDA tensors and runs its plain version
@@ -16,6 +17,7 @@ launches.  The kernels are compiled at first use, never at import.
 """
 
 from .decode import (
+    LUT_BITS,
     DecodeTables,
     GeneralDecodeTables,
     decode_hf2_device,
@@ -23,7 +25,9 @@ from .decode import (
     decode_rows_general,
     decode_rows_general_reference,
     decode_rows_reference,
+    decode_tile_rows,
     decoder_for,
+    first_level_table,
     make_canonical_decode_tables,
     make_decode_tables,
     payload_to_lane_words,
@@ -38,6 +42,7 @@ from .encode import (
 from .histogram import histogram, histogram_reference
 
 __all__ = [
+    "LUT_BITS",
     "DecodeTables",
     "EncodeTables",
     "GeneralDecodeTables",
@@ -46,9 +51,11 @@ __all__ = [
     "decode_rows_general",
     "decode_rows_general_reference",
     "decode_rows_reference",
+    "decode_tile_rows",
     "decoder_for",
     "encode_blocks",
     "encode_blocks_reference",
+    "first_level_table",
     "histogram",
     "histogram_reference",
     "make_canonical_decode_tables",

@@ -44,11 +44,16 @@ _SIGNATURES = {
     # ... the same, then hist, n_hist, hist_out, stream
     "tpuhuff_encode_lanes_hist": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
                                   _L, _P, _P],
-    # rows, bit0, nbits, ub, dd, perm, out, B, W, block_len, max_len, stream
-    "tpuhuff_decode_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # rows, bit0, nbits, thr, sym, len, out, B, W, block_len, stream
-    "tpuhuff_decode_rows_general": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _P],
+    # rows, bit0, nbits, ub, dd, perm, lut, out, B, W, block_len, max_len,
+    # stream
+    "tpuhuff_decode_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _P],
+    # rows, bit0, nbits, thr, sym, len, lut, out, B, W, block_len, stream
+    "tpuhuff_decode_rows_general": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _I, _P],
+    # B, W, block_len (queries: no stream)
+    "tpuhuff_decode_rows_tile": [_I, _I, _I],
+    "tpuhuff_decode_rows_general_tile": [_I, _I, _I],
     # data, n, out, stream
     "tpuhuff_hist256": [_P, _L, _P, _P],
 }

@@ -17,6 +17,10 @@ next 32 bits to (symbol, code length):
 :func:`decoder_for` picks one from the tree itself.  The table
 construction and the host row gather are the JAX package's, with the same
 arithmetic, so both packages feed their kernels identical operands.
+
+Both kernels first look the window's top ``LUT_BITS`` bits up in a
+first-level table, ``lut`` (:func:`first_level_table`, built here on the
+host), and run their own rule above only where an entry escapes.
 """
 
 from __future__ import annotations
@@ -37,16 +41,86 @@ __all__ = [
     "GeneralDecodeTables",
     "make_canonical_decode_tables",
     "make_decode_tables",
+    "first_level_table",
+    "LUT_BITS",
     "decoder_for",
     "payload_to_lane_words",
     "decode_rows",
     "decode_rows_reference",
     "decode_rows_general",
     "decode_rows_general_reference",
+    "decode_tile_rows",
     "decode_hf2_device",
 ]
 
 _U32 = 0xFFFFFFFF
+# k of the first-level table: 2^k entries of 16 bits in each thread block's
+# shared memory.  14 covers every code of the main input's trees, so none
+# escapes (experiments/decode_lut_sweep.py).  The kernels' own k is
+# TPUHUFF_DECODE_LUT_BITS in csrc/decode_common.cuh, the same number.
+LUT_BITS = 14
+
+
+def first_level_table(tables, k: int = LUT_BITS) -> torch.Tensor:
+    """The (2^k,) int16 first-level table of ``tables``' rule (a
+    :class:`DecodeTables`' ladder or a :class:`GeneralDecodeTables`'
+    search); the kernels take ``k = LUT_BITS``.
+
+    The rule maps a u32 window to ``(symbol, length)`` and a step that
+    never falls as the window grows and that, held on a k-bit prefix with
+    ``length <= k``, holds ``(symbol, length)`` too.  Entry ``e`` holds
+    ``symbol | length << 8`` if the step is the same at the lowest window
+    ``e << (32-k)`` and at the highest ``lo | (2^(32-k) - 1)``, hence on
+    every window in between, with ``1 <= length <= k``; else 0 ("escape":
+    the kernel runs the rule on the window).
+    """
+    rule = (_search_rule(tables) if isinstance(tables, GeneralDecodeTables)
+            else _ladder_rule(tables))
+    lo = np.arange(1 << k, dtype=np.uint64) << np.uint64(32 - k)
+    hi = lo | np.uint64((1 << (32 - k)) - 1)
+    (sym, ln, step_lo), (_, _, step_hi) = rule(lo), rule(hi)
+    ok = (step_lo == step_hi) & (ln >= 1) & (ln <= k)
+    return torch.from_numpy(np.where(ok, sym | (ln << 8), 0).astype(np.int16))
+
+
+def _u32(t: torch.Tensor) -> np.ndarray:
+    """An int32 tensor's bit patterns as uint64 numpy."""
+    return t.cpu().numpy().view(np.uint32).astype(np.uint64)
+
+
+def _ladder_rule(tables: "DecodeTables"):
+    """K2's rule (:func:`decode_rows_reference`) on numpy windows; its step
+    is the length, the count of thresholds at or below the window: where
+    the count holds, so does the set of thresholds counted, hence the
+    index offset, and a length <= k reads only the prefix's bits."""
+    ml = tables.max_len
+    ub = _u32(tables.ub)[: ml - 1]
+    dd = tables.dd.cpu().numpy().astype(np.int64)
+    perm = tables.perm.cpu().numpy().astype(np.int64)
+
+    def rule(w):
+        ind = (w[:, None] >= ub[None, :]).astype(np.int64)
+        ln = 1 + ind.sum(axis=1)
+        delta = dd[0] + (ind * dd[None, 1:ml]).sum(axis=1)
+        idx = ((w >> (32 - ln).astype(np.uint64)).astype(np.int64)
+               + delta) & 255
+        return perm[idx], ln, ln
+
+    return rule
+
+
+def _search_rule(tables: "GeneralDecodeTables"):
+    """K4's rule (:func:`decode_rows_general_reference`) on numpy windows;
+    its step is the leaf index."""
+    thr = _u32(tables.thr)
+    sym = tables.sym.cpu().numpy().astype(np.int64)
+    lens = tables.len.cpu().numpy().astype(np.int64)
+
+    def rule(w):
+        idx = np.maximum(np.searchsorted(thr, w, side="right") - 1, 0)
+        return sym[idx], lens[idx], idx
+
+    return rule
 
 
 def _unpack4(perm4: np.ndarray) -> np.ndarray:
@@ -59,13 +133,20 @@ def _unpack4(perm4: np.ndarray) -> np.ndarray:
 class DecodeTables:
     """Canonical decode ladder: ``ub`` (32,) int32 bit patterns of the u32
     left-aligned exclusive upper bounds per length, ``dd`` (32,) int32
-    ladder deltas, ``perm`` (256,) uint8 canonical index -> byte, and the
-    tree's ``max_len`` (1..32)."""
+    ladder deltas, ``perm`` (256,) uint8 canonical index -> byte, the
+    tree's ``max_len`` (1..32), and ``lut`` (2^LUT_BITS,) int16, the
+    ladder's first-level table (:func:`first_level_table`), built from the
+    other fields where none is given."""
 
     ub: torch.Tensor
     dd: torch.Tensor
     perm: torch.Tensor
     max_len: int
+    lut: torch.Tensor | None = None
+
+    def __post_init__(self):
+        if self.lut is None:
+            object.__setattr__(self, "lut", first_level_table(self))
 
     @classmethod
     def from_numpy(cls, ub, dd, perm4, max_len: int) -> "DecodeTables":
@@ -85,7 +166,8 @@ class DecodeTables:
 
     def to(self, device) -> "DecodeTables":
         return DecodeTables(self.ub.to(device), self.dd.to(device),
-                            self.perm.to(device), self.max_len)
+                            self.perm.to(device), self.max_len,
+                            self.lut.to(device))
 
 
 def make_canonical_decode_tables(tree: HuffTree) -> DecodeTables | None:
@@ -96,7 +178,8 @@ def make_canonical_decode_tables(tree: HuffTree) -> DecodeTables | None:
       length <= L, clamped to 0xFFFFFFFF; ``len = 1 + #(window >= ub)``;
     * ``dd``: deltas folding the index offsets into the same compares,
       ``idx = (window >> (32-len)) + dd[0] + sum ind_L * dd[L]``;
-    * ``perm``: canonical index -> byte, padded with the last symbol.
+    * ``perm``: canonical index -> byte, padded with the last symbol;
+    * ``lut``: the ladder's first-level table of ``2^LUT_BITS`` entries.
     """
     codes = tree.read_codes()
     lengths = [(letter, code.length) for letter, code in codes.items()]
@@ -139,15 +222,22 @@ class GeneralDecodeTables:
     """Interval tables for any prefix tree: ``thr`` (256,) int32 bit
     patterns of the u32 left-aligned leaf codes, ascending; ``sym`` and
     ``len`` (256,) uint8 each leaf's byte and code length.  Entries past
-    the leaf count repeat the last leaf."""
+    the leaf count repeat the last leaf.  ``lut`` (2^LUT_BITS,) int16 is
+    the search's first-level table (:func:`first_level_table`), built from
+    the other fields where none is given."""
 
     thr: torch.Tensor
     sym: torch.Tensor
     len: torch.Tensor
+    lut: torch.Tensor | None = None
+
+    def __post_init__(self):
+        if self.lut is None:
+            object.__setattr__(self, "lut", first_level_table(self))
 
     def to(self, device) -> "GeneralDecodeTables":
         return GeneralDecodeTables(self.thr.to(device), self.sym.to(device),
-                                   self.len.to(device))
+                                   self.len.to(device), self.lut.to(device))
 
 
 def make_decode_tables(tree: HuffTree) -> GeneralDecodeTables:
@@ -233,6 +323,10 @@ def _check_args(rows, bit0, nbits, tables, block_len):
         _build.check_tensor(tables.dd, "tables.dd", torch.int32, (32,), dev)
         _build.check_tensor(tables.perm, "tables.perm", torch.uint8, (256,),
                             dev)
+    if isinstance(tables, DecodeTables) and not 1 <= tables.max_len <= 32:
+        raise ValueError("tables.max_len must be in 1..32")
+    _build.check_tensor(tables.lut, "tables.lut", torch.int16,
+                        (1 << LUT_BITS,), dev)
     return B, W
 
 
@@ -269,8 +363,9 @@ def decode_rows(rows: torch.Tensor, bit0: torch.Tensor, nbits: torch.Tensor,
     out = torch.empty((B, block_len), dtype=torch.uint8, device=rows.device)
     _build.launch("tpuhuff_decode_rows", rows.device, rows.data_ptr(),
                   bit0.data_ptr(), nbits.data_ptr(), tables.ub.data_ptr(),
-                  tables.dd.data_ptr(), tables.perm.data_ptr(), out.data_ptr(),
-                  B, W, int(block_len), tables.max_len)
+                  tables.dd.data_ptr(), tables.perm.data_ptr(),
+                  tables.lut.data_ptr(), out.data_ptr(), B, W, int(block_len),
+                  tables.max_len)
     decode_rows.launches += 1
     return out
 
@@ -325,8 +420,8 @@ def decode_rows_general(rows: torch.Tensor, bit0: torch.Tensor,
     out = torch.empty((B, block_len), dtype=torch.uint8, device=rows.device)
     _build.launch("tpuhuff_decode_rows_general", rows.device, rows.data_ptr(),
                   bit0.data_ptr(), nbits.data_ptr(), tables.thr.data_ptr(),
-                  tables.sym.data_ptr(), tables.len.data_ptr(), out.data_ptr(),
-                  B, W, int(block_len))
+                  tables.sym.data_ptr(), tables.len.data_ptr(),
+                  tables.lut.data_ptr(), out.data_ptr(), B, W, int(block_len))
     decode_rows_general.launches += 1
     return out
 
@@ -362,6 +457,18 @@ def decode_rows_general_reference(rows: torch.Tensor, bit0: torch.Tensor,
         cur = cur + ln
         consumed = consumed + ln
     return out
+
+
+def decode_tile_rows(B: int, W: int, block_len: int, general: bool,
+                     device="cuda") -> int:
+    """Huffman blocks per thread block that :func:`decode_rows` (or, with
+    ``general``, :func:`decode_rows_general`) takes on ``device`` for B
+    rows of W words; 0 if one row does not fit in shared memory (the
+    launch then raises)."""
+    name = ("tpuhuff_decode_rows_general_tile" if general
+            else "tpuhuff_decode_rows_tile")
+    with torch.cuda.device(torch.device(device)):
+        return getattr(_build.lib(), name)(int(B), int(W), int(block_len))
 
 
 def decode_hf2_device(header, payload: bytes, device="cuda") -> bytes:
