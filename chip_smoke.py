@@ -16,8 +16,13 @@ Phases (any failure exits non-zero and prints no result line):
    encode (K1), encode + histogram (K5, ``hist_data`` the lanes or a
    distinct operand 3 bytes past a 16-byte boundary) and canonical decode
    (K2) on textlike, uniform-random, single-symbol and Fibonacci (32-bit
-   code) inputs with ragged lanes and missing letters; K1 at lanes of 8 and
-   2 bytes (the shapes of the TPU's flat-layout kernel, K6); general-tree
+   code) inputs with ragged lanes and missing letters; K5 also on an
+   odd-length prefix of the lanes' storage (counted from the bytes the
+   encode holds) and on a view of the lanes one byte in (read apart); K1
+   and K5 with the allocator's blocks of the words' size filled with 0xFF
+   first (every word must be written); K1 at lanes of 8, 4 and 2 bytes
+   (the shapes of the TPU's flat-layout kernel, K6) and K1 and K5 at lanes
+   of 8, 32 and 1024 bytes under the Fibonacci tree; general-tree
    decode (K4) with non-canonical trees on textlike at the main path's
    shape, 4 MiB uniform random, a 2-letter alphabet, the Fibonacci file
    (32-bit codes) and blocks cut short; K2 and K4 on rows of random words
@@ -25,7 +30,10 @@ Phases (any failure exits non-zero and prints no result line):
    ``block_len`` 1000 and 2048; histograms (K3) from 1 B to 100 MiB.  The
    decoders' first-level table size k, rows per thread block n and the
    share of the main input's symbols that escape the table; kernel, plain
-   and library-call times at the main path's shapes;
+   and library-call times at the main path's shapes, and K1 and K5 at
+   lanes of 8 bytes; for K1 and K5 also a second reading, the device's
+   time alone (the runs enqueued behind a spin on the device) beside the
+   wrapper's host time per call;
 4. the main paths, ``tpuhuff_torch.io`` on the device, each run with every
    launch count set to 0 just before it and read just after:
    (a) canonical containers of 100 MiB of textlike data (seed 42), a
@@ -130,6 +138,29 @@ def cuda_ms(torch, fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def spin_ms(torch, fn, reps: int = 5) -> tuple[float, float]:
+    """``cuda_ms`` with the runs enqueued behind a spin on the device that
+    outlasts the host's time to enqueue them (twice the first run's, at
+    2 GHz): the device's time alone, where the host's time per call (a
+    wrapper's checks, allocations and launch) is shorter than it.  Returns
+    (device ms per run, host ms per call while enqueueing)."""
+    t0 = time.perf_counter()
+    fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * reps * host * 2e9) + 1_000_000)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, host
+
+
 def max_err(torch, got, want) -> int:
     if got.shape != want.shape:
         fail(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
@@ -213,6 +244,7 @@ def main() -> None:
         make_canonical_decode_tables,
         make_decode_tables,
         make_encode_tables,
+        out_words,
         payload_to_lane_words,
     )
 
@@ -296,16 +328,44 @@ def main() -> None:
     errs = {"encode": 0, "encode_hist": 0, "decode": 0, "decode_general": 0,
             "histogram": 0}
 
-    def check_k5(name, lanes, valid, etab, hist):
+    def poison(lanes, etab):
+        """Fill the allocator's blocks of the words' size with 0xFF and free
+        them: the next encode's `words` then starts as 0xFF, so a word the
+        kernel leaves unwritten shows against the plain version."""
+        shape = (lanes.shape[0], out_words(lanes.shape[1], etab.max_len))
+        junk = [torch.empty(shape, dtype=torch.int32, device=dev).fill_(-1)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        del junk
+
+    def check_k1(name, lanes, valid, etab, poisoned=False):
+        """K1 against its plain version: words, bits and miss."""
+        if poisoned:
+            poison(lanes, etab)
+        got = encode_blocks(lanes, valid, etab)
+        want = encode_blocks_reference(lanes, valid, etab)
+        torch.cuda.synchronize()
+        err = max(max_err(torch, g, w) for g, w in zip(got, want))
+        errs["encode"] = max(errs["encode"], err)
+        log(f"phase 3: encode {name}: {lanes.shape[0]} lanes of "
+            f"{lanes.shape[1]} B, max code {etab.max_len} bits, err {err}")
+
+    def check_k5(name, lanes, valid, etab, hist, poisoned=False):
         """K5 against its plain version: words, bits, miss and counts."""
+        if poisoned:
+            poison(lanes, etab)
         got = encode_blocks(lanes, valid, etab, hist_data=hist)
         want = encode_blocks_reference(lanes, valid, etab, hist_data=hist)
         torch.cuda.synchronize()
         err = max(max_err(torch, g, w) for g, w in zip(got, want))
         errs["encode_hist"] = max(errs["encode_hist"], err)
+        # the kernel counts the bytes it holds where the operand starts at
+        # the lanes' first byte, and reads any other operand apart
+        route = ("in the lanes" if hist.numel()
+                 and hist.data_ptr() == lanes.data_ptr() else "distinct")
         log(f"phase 3: encode_hist {name}: {lanes.shape[0]} lanes of "
             f"{lanes.shape[1]} B, operand {hist.numel()} B at address % 16 "
-            f"= {hist.data_ptr() % 16}, err {err}")
+            f"= {hist.data_ptr() % 16} ({route} route), err {err}")
 
     for name, (data, tree) in cases.items():
         tree = tree if tree is not None else tree_of(data)
@@ -345,24 +405,49 @@ def main() -> None:
             check_k5(f"{name} (distinct operand)", lanes, valid, etab,
                      other[3: 3 + lanes.numel() - 13])
             del other
+            flat = lanes.reshape(-1)
+            # the lanes' own storage cut short at an odd length, and a view
+            # of it one byte in
+            check_k5(f"{name} (odd prefix of the lanes)", lanes, valid, etab,
+                     flat[: flat.numel() - 2 * LANE - 1])
+            check_k5(f"{name} (the lanes one byte in)", lanes, valid, etab,
+                     flat[1:])
+            # the allocator's blocks full of 0xFF before the call
+            check_k1(f"{name} (words' block poisoned)", lanes, valid, etab,
+                     poisoned=True)
+            check_k5(f"{name} (words' block poisoned)", lanes, valid, etab,
+                     lanes, poisoned=True)
 
-    # K1 at lanes of 8 and 2 bytes: the shapes the TPU gave its flat-layout
-    # kernel (K6); here K1's kernel serves every power-of-two lane
-    for n_lane in (8, 2):
-        data = text[: 4 << 20].reshape(-1, n_lane)
-        lanes = torch.from_numpy(data).to(dev)
-        valid = torch.full((data.shape[0],), n_lane, dtype=torch.int32,
-                           device=dev)
+    # K1 at lanes of 8, 4 and 2 bytes: the shapes the TPU gave its
+    # flat-layout kernel (K6); here K1's kernel serves every power-of-two
+    # lane.  K1 and K5 at lanes of 8, 32 and 1024 bytes under the Fibonacci
+    # tree (32-bit codes), K5 on each of its routes, and with the words'
+    # block poisoned
+    def ragged(B, n_lane):
+        valid = torch.full((B,), n_lane, dtype=torch.int32, device=dev)
         valid[1::5] = torch.from_numpy(rng_k5.integers(
             0, n_lane, valid[1::5].numel()).astype(np.int32)).to(dev)
-        etab = make_encode_tables(*tree_of(text).encode_tables()).to(dev)
-        got = encode_blocks(lanes, valid, etab)
-        want = encode_blocks_reference(lanes, valid, etab)
-        torch.cuda.synchronize()
-        err = max(max_err(torch, g, w) for g, w in zip(got, want))
-        errs["encode"] = max(errs["encode"], err)
-        log(f"phase 3: encode at lanes of {n_lane} B: {data.shape[0]} lanes, "
-            f"err {err}")
+        return valid
+
+    text_tab = make_encode_tables(*tree_of(text).encode_tables()).to(dev)
+    for n_lane in (8, 4, 2):
+        lanes = torch.from_numpy(text[: 4 << 20].reshape(-1, n_lane)).to(dev)
+        check_k1(f"textlike at lanes of {n_lane} B", lanes,
+                 ragged(lanes.shape[0], n_lane), text_tab)
+    fib_tab = make_encode_tables(*tree_of(fib).encode_tables()).to(dev)
+    for n_lane in (8, 32, 1024):
+        B = fib.size // n_lane
+        lanes = torch.from_numpy(fib[: B * n_lane].reshape(B, n_lane)).to(dev)
+        valid = ragged(B, n_lane)
+        flat = lanes.reshape(-1)
+        check_k1(f"fib at lanes of {n_lane} B", lanes, valid, fib_tab,
+                 poisoned=True)
+        for op_name, op in (("the lanes", lanes),
+                            ("odd prefix of the lanes",
+                             flat[: flat.numel() - n_lane - 1]),
+                            ("the lanes one byte in", flat[1:])):
+            check_k5(f"fib at lanes of {n_lane} B ({op_name})", lanes, valid,
+                     fib_tab, op, poisoned=op_name == "the lanes")
 
     # K4: non-canonical trees; full blocks must decode to their source
     rand4 = rng.integers(0, 256, 4 << 20, dtype=np.uint8)
@@ -557,12 +642,46 @@ def main() -> None:
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
             f"{bound[k]:.4f} ms ({moved[k]} B at 3.35 TB/s) [{card}]")
     distinct = (moved["encode_hist"] + s["lanes"].numel()) / HBM_BYTES_PER_MS
+    other = torch.empty_like(s["lanes"])  # the distinct route, same size
+    k5_distinct = cuda_ms(torch, lambda: encode_blocks(
+        s["lanes"], s["valid"], s["etab"], hist_data=other))
     log(f"phase 3: encode_hist beside its unfused yardstick: K5 "
-        f"{timing['encode_hist'][0]:.4f} ms, K1 + K3 "
-        f"{timing['encode'][0] + timing['histogram'][0]:.4f} ms (K1 "
+        f"{timing['encode_hist'][0]:.4f} ms (operand the lanes), "
+        f"{k5_distinct:.4f} ms (a distinct operand of the same size), K1 + "
+        f"K3 {timing['encode'][0] + timing['histogram'][0]:.4f} ms (K1 "
         f"{timing['encode'][0]:.4f} + K3 {timing['histogram'][0]:.4f} on "
         f"{hist_chunk.numel()} B); bound {distinct:.4f} ms were the operand "
         f"a distinct tensor of the same size [{card}]")
+    # K1 and K5 at lanes of 8 bytes: the same 64 MiB as 8,388,608 lanes
+    lanes8 = s["lanes"].reshape(-1, 8)
+    valid8 = torch.full((lanes8.shape[0],), 8, dtype=torch.int32, device=dev)
+    k1_8 = cuda_ms(torch, lambda: encode_blocks(lanes8, valid8, s["etab"]))
+    k5_8 = cuda_ms(torch, lambda: encode_blocks(lanes8, valid8, s["etab"],
+                                                hist_data=lanes8))
+    R8 = out_words(8, s["etab"].max_len)
+    bound8 = (nbytes(lanes8, valid8, s["etab"].lens, s["etab"].acodes)
+              + (4 * R8 + 8) * lanes8.shape[0]) / HBM_BYTES_PER_MS
+    log(f"phase 3: encode at lanes of 8 B ({lanes8.shape[0]} lanes, {R8} "
+        f"words each): K1 {k1_8:.4f} ms, K5 (operand the lanes) {k5_8:.4f} "
+        f"ms, bound {bound8:.4f} ms [{card}]")
+    # the encode kernels' second reading: the device's time alone, beside
+    # the wrapper's host time per call (the times above hold the larger)
+    alone = {
+        "K1": lambda: encode_blocks(s["lanes"], s["valid"], s["etab"]),
+        "K5": lambda: encode_blocks(s["lanes"], s["valid"], s["etab"],
+                                    hist_data=s["lanes"]),
+        "K5 (a distinct operand)": lambda: encode_blocks(
+            s["lanes"], s["valid"], s["etab"], hist_data=other),
+        "K1 at lanes of 8 B": lambda: encode_blocks(lanes8, valid8, s["etab"]),
+        "K5 at lanes of 8 B": lambda: encode_blocks(
+            lanes8, valid8, s["etab"], hist_data=lanes8),
+    }
+    for k, fn in alone.items():
+        ms, host = spin_ms(torch, fn)
+        log(f"phase 3: {k}, the device's time alone (behind a device spin): "
+            f"{ms:.4f} ms; the wrapper's host time per call {host:.4f} ms "
+            f"[{card}]")
+    del other, lanes8, valid8, alone
     # the decoders on rows as wide as K1's output (and one slack word): the
     # time of the row-staging kernels grows with the row width
     wide = {"decode": (decode_rows, s["words"], s["nbits"], s["dtab"]),

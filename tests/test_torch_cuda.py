@@ -26,6 +26,7 @@ from tpuhuff_torch.kernels import (
     make_canonical_decode_tables,
     make_decode_tables,
     make_encode_tables,
+    out_words,
     payload_to_lane_words,
 )
 
@@ -44,42 +45,93 @@ def _tree(data):
     return canonicalize(build_tree_for_device(ByteWeights(counts), 32)[0])
 
 
-@pytest.mark.parametrize("N", [1, 2, 8, 16, 256, 1024])
-def test_encode_kernel_matches_plain(dev, N):
-    rng = np.random.default_rng(N)
-    B = 1000
-    data = rng.zipf(1.3, (B, N)).clip(0, 255).astype(np.uint8)
-    tables = make_encode_tables(*_tree(data.reshape(-1)).encode_tables()).to(dev)
+def _fib_tree():
+    """A tree of Fibonacci weights: codes of up to 32 bits."""
+    fib = [1, 1]
+    while len(fib) < 34:
+        fib.append(fib[-1] + fib[-2])
+    counts = np.zeros(256, dtype=np.int64)
+    counts[:34] = fib
+    return canonicalize(build_tree_for_device(ByteWeights(counts), 32)[0])
+
+
+def _encode_case(dev, N, case, seed):
+    """(lanes, valid, tables, max_code_len) for one case: ``ragged`` (B not
+    a multiple of the tile, ragged valid counts, missing letters), ``one
+    lane``, ``no lanes``, ``wide`` (max_code_len 32, above the tables':
+    more zero words), ``fib32`` (32-bit codes) or ``poisoned`` (the
+    allocator's blocks of the words' size hold 0xFF first, so a word the
+    kernel leaves unwritten shows)."""
+    rng = np.random.default_rng(seed)
+    B = {"one lane": 1, "no lanes": 0}.get(case, 1000 + 7)
+    if case == "fib32":
+        data = rng.integers(0, 12, (B, N), dtype=np.uint8)
+        tree = _fib_tree()
+    else:
+        data = rng.zipf(1.3, (B, N)).clip(0, 255).astype(np.uint8)
+        # bytes >= 200 have no code: missing letters
+        tree = _tree(np.concatenate([data[data < 200], np.arange(200)]))
+    tables = make_encode_tables(*tree.encode_tables()).to(dev)
     valid = torch.from_numpy(rng.integers(0, N + 1, B).astype(np.int32)).to(dev)
-    lanes = torch.from_numpy(data).to(dev)
-    got = encode_blocks(lanes, valid, tables)
-    want = encode_blocks_reference(lanes, valid, tables)
+    max_code_len = 32 if case == "wide" else None
+    if case == "poisoned":
+        R = out_words(N, tables.max_len)
+        junk = [torch.empty((B, R), dtype=torch.int32, device=dev).fill_(-1)
+                for _ in range(4)]
+        torch.cuda.synchronize()
+        del junk
+    return torch.from_numpy(data).to(dev), valid, tables, max_code_len
+
+
+_CASES = ["ragged", "one lane", "no lanes", "wide", "fib32", "poisoned"]
+
+
+@pytest.mark.parametrize("case", _CASES)
+@pytest.mark.parametrize("N", [1, 2, 4, 8, 16, 32, 256, 1024])
+def test_encode_kernel_matches_plain(dev, N, case):
+    """K1 bit-exact against its plain version: words (all R of them),
+    bits and miss, and one launch counted."""
+    lanes, valid, tables, ml = _encode_case(dev, N, case, N + len(case))
+    before = encode_blocks.launches
+    got = encode_blocks(lanes, valid, tables, ml)
+    want = encode_blocks_reference(lanes, valid, tables, ml)
     torch.cuda.synchronize()
+    assert encode_blocks.launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("N", [8, 256])
-@pytest.mark.parametrize("operand", ["lanes", "unaligned"])
-def test_encode_hist_kernel_matches_plain(dev, N, operand):
-    """K5: K1's results and the exact counts of ``hist_data``, which is the
-    lanes themselves or a shorter operand 3 bytes past a 16-byte boundary."""
-    rng = np.random.default_rng(N + len(operand))
-    B = 3000
-    data = rng.zipf(1.3, (B, N)).clip(0, 255).astype(np.uint8)
-    tables = make_encode_tables(*_tree(data.reshape(-1)).encode_tables()).to(dev)
-    valid = torch.from_numpy(rng.integers(0, N + 1, B).astype(np.int32)).to(dev)
-    lanes = torch.from_numpy(data).to(dev)
+@pytest.mark.parametrize("case", ["ragged", "one lane", "fib32", "poisoned"])
+@pytest.mark.parametrize("operand", ["lanes", "prefix", "offset view",
+                                     "unaligned"])
+@pytest.mark.parametrize("N", [1, 4, 8, 32, 256, 1024])
+def test_encode_hist_kernel_matches_plain(dev, N, operand, case):
+    """K5: K1's results and the exact counts of ``hist_data``: the lanes
+    themselves or an odd-length prefix of their storage (counted from the
+    bytes the encode holds), a view of the lanes one byte in, or another
+    tensor 3 bytes past a 16-byte boundary (read apart)."""
+    lanes, valid, tables, ml = _encode_case(dev, N, case,
+                                            N + len(operand) + len(case))
+    flat = lanes.reshape(-1)
+    n = flat.numel()
     if operand == "lanes":
         hist = lanes
+    elif operand == "prefix":
+        hist = flat[: max(1, n - 2 * N - 1) | 1]
+    elif operand == "offset view":
+        hist = flat[1:]
     else:
-        buf = torch.from_numpy(rng.integers(0, 256, B * N + 16,
-                                            dtype=np.uint8)).to(dev)
-        hist = buf[3: 3 + B * N - 13]
+        buf = torch.from_numpy(np.random.default_rng(n).integers(
+            0, 256, n + 16, dtype=np.uint8)).to(dev)
+        hist = buf[3: 3 + max(1, n - 13)]
         assert hist.data_ptr() % 16 == 3
+    # the kernel counts from the bytes it holds only where the operand
+    # starts at the lanes' first byte
+    assert (hist.data_ptr() == lanes.data_ptr()) == (operand in ("lanes",
+                                                                 "prefix"))
     before = encode_blocks.hist_launches, encode_blocks.launches
-    got = encode_blocks(lanes, valid, tables, hist_data=hist)
-    want = encode_blocks_reference(lanes, valid, tables, hist_data=hist)
+    got = encode_blocks(lanes, valid, tables, ml, hist_data=hist)
+    want = encode_blocks_reference(lanes, valid, tables, ml, hist_data=hist)
     torch.cuda.synchronize()
     assert (encode_blocks.hist_launches, encode_blocks.launches) == (
         before[0] + 1, before[1])

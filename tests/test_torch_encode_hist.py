@@ -3,7 +3,10 @@ encode kernels: K5, K6 and K7.
 
 * K5 — the fused encode kernel with its ``hist_data`` histogram
   (``encode_blocks_pallas2(..., with_miss=True, hist_data=...)``, Pallas
-  interpret mode) against ``encode_blocks(..., hist_data=...)``;
+  interpret mode) against ``encode_blocks(..., hist_data=...)``, on the
+  operands of both of the port kernel's routes: the lanes' own storage
+  (whole, or an odd-length prefix) and any other operand (a view of the
+  lanes one byte in, another tensor, an empty one);
 * K6 — the flat-layout kernel, which the JAX encoder takes for lanes of
   N < 16 bytes (``encode_blocks(..., pallas=True)`` at N = 2, 4, 8);
 * K7 — the cell-major layout (``pallas_encode2.ENC_LAYOUT = "cell"``).
@@ -44,8 +47,14 @@ def _tables(tree):
 
 
 def _port(data, valid, tables, hist=None):
-    out = encode_blocks(torch.from_numpy(data), torch.from_numpy(valid), tables,
-                        hist_data=None if hist is None else torch.from_numpy(hist))
+    """The port's encode; ``hist`` is a numpy operand, or a function of
+    the lanes tensor that gives a tensor (a view of the lanes' storage)."""
+    lanes = torch.from_numpy(data)
+    if callable(hist):
+        hist = hist(lanes)
+    elif hist is not None:
+        hist = torch.from_numpy(hist)
+    out = encode_blocks(lanes, torch.from_numpy(valid), tables, hist_data=hist)
     counts = out[3].numpy() if hist is not None else None
     return as_u32(out[0]), out[1].numpy(), int(out[2].sum()), counts
 
@@ -65,9 +74,32 @@ def _textlike(shape, rng):
     return (rng.zipf(1.3, shape) % 90 + 30).astype(np.uint8)
 
 
-@pytest.mark.parametrize("operand", ["lanes", "shorter_odd", "missing"])
+# K5's operands: (seed, the bytes counted as numpy from the lanes' flat
+# bytes, the port's operand from the lanes tensor, whether it is a
+# nonempty operand from the lanes' first byte: the kernel then counts the
+# bytes it holds for the encode, and reads any other operand apart)
+_PREFIX = 256 * 200 - 12_345  # odd, inside the last lanes
+_OPERANDS = {
+    "lanes": (1, lambda flat, rng: flat, lambda t: t, True),
+    # the lanes' own storage, cut short at an odd length: counted from the
+    # bytes the encode holds, up to the clip
+    "prefix_odd": (4, lambda flat, rng: flat[:_PREFIX],
+                   lambda t: t.reshape(-1)[:_PREFIX], True),
+    # a view of the lanes one byte in: the same storage, not the same start
+    "offset_view": (5, lambda flat, rng: flat[1:],
+                    lambda t: t.reshape(-1)[1:], False),
+    "shorter_odd": (2, lambda flat, rng: rng.integers(
+        0, 256, _PREFIX, dtype=np.uint8), None, False),
+    "missing": (3, lambda flat, rng: flat, lambda t: t, True),
+    "empty": (6, lambda flat, rng: flat[:0], lambda t: t.reshape(-1)[:0],
+              False),
+}
+
+
+@pytest.mark.parametrize("operand", list(_OPERANDS))
 def test_k5_encode_hist_matches_pallas(operand):
-    rng = np.random.default_rng({"lanes": 1, "shorter_odd": 2, "missing": 3}[operand])
+    seed, numpy_op, torch_op, in_lanes = _OPERANDS[operand]
+    rng = np.random.default_rng(seed)
     B, N = 200, 256  # B not a multiple of 128: the JAX side pads to 256 lanes
     data = _textlike((B, N), rng)
     valid = _ragged(B, N, rng)
@@ -75,16 +107,18 @@ def test_k5_encode_hist_matches_pallas(operand):
     tree = _tree(np.bincount(counted.reshape(-1), minlength=256), 16)
     if operand == "missing":
         data[::3, 150:] = 250  # a byte the tree has no code for
-    hist = data.reshape(-1).copy()
-    if operand == "shorter_odd":
-        hist = rng.integers(0, 256, B * N - 12_345, dtype=np.uint8)
+    hist = numpy_op(data.reshape(-1), rng).copy()
     dl, da, tabs, tables = _tables(tree)
     assert pe2.fused_layout_ok(N, tabs[4])  # the JAX call takes K5
     jw, jb, jmiss, jhist = pe2.encode_blocks_pallas2(
         jnp.asarray(data), tabs[:4], tabs[4], valid_lens=jnp.asarray(valid),
         interpret=True, full_alphabet=bool(tabs[5]), with_miss=True,
         hist_data=jnp.asarray(hist))
-    pw, pb, pmiss, phist = _port(data, valid, tables, hist)
+    if torch_op is not None:
+        lanes = torch.from_numpy(data)
+        op = torch_op(lanes)
+        assert (op.numel() > 0 and op.data_ptr() == lanes.data_ptr()) == in_lanes
+    pw, pb, pmiss, phist = _port(data, valid, tables, torch_op or hist)
     _same_streams(jw, jb, pw, pb)
     assert pmiss == int(jmiss)
     assert (pmiss > 0) == (operand == "missing")

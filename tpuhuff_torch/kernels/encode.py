@@ -139,8 +139,12 @@ def encode_blocks(lanes: torch.Tensor, valid_lens: torch.Tensor,
     bytes on the lanes' device, adds a fourth result: the (256,) int64
     counts of its bytes, taken in the same launch (K5, counted in
     ``encode_blocks.hist_launches``; without it K1, counted in
-    ``encode_blocks.launches``).  CUDA tensors launch the kernel
-    (``csrc/encode.cu``); CPU tensors take :func:`encode_blocks_reference`.
+    ``encode_blocks.launches``).  Where ``hist_data`` is the lanes' own
+    storage from their first byte (the same ``data_ptr``), the kernel
+    counts the bytes it holds for the encode; any other operand is read
+    apart in the same launch.  CUDA tensors launch the kernel
+    (``csrc/encode.cu``), which writes every word of ``words``; CPU tensors
+    take :func:`encode_blocks_reference`.
     """
     B, N, R = _check_args(lanes, valid_lens, tables, max_code_len)
     if hist_data is not None:
