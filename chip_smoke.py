@@ -27,11 +27,12 @@ Phases (any failure exits non-zero and prints no result line):
    shape, 4 MiB uniform random, a 2-letter alphabet, the Fibonacci file
    (32-bit codes) and blocks cut short; K2 and K4 on rows of random words
    that are not codes, and on host-written ``.hf2`` payloads at
-   ``block_len`` 1000 and 2048; histograms (K3) from 1 B to 100 MiB.  The
+   ``block_len`` 1000 and 2048; K4 on a tree of two leaves (one-bit
+   codes), either way round; histograms (K3) from 1 B to 100 MiB.  The
    decoders' first-level table size k, rows per thread block n and the
    share of the main input's symbols that escape the table; kernel, plain
    and library-call times at the main path's shapes, and K1 and K5 at
-   lanes of 8 bytes; for K1 and K5 also a second reading, the device's
+   lanes of 8 bytes; for every kernel also a second reading, the device's
    time alone (the runs enqueued behind a spin on the device) beside the
    wrapper's host time per call;
 4. the main paths, ``tpuhuff_torch.io`` on the device, each run with every
@@ -52,7 +53,19 @@ Phases (any failure exits non-zero and prints no result line):
    lanes, the TPU's K6 route), SHA-equal to the host writer and restored;
 5. wall-clock rates of port compress and decompress (canonical and not)
    and of dataset compress (shared and adaptive) beside the host C++
-   writers and reader, and a device-to-device copy.
+   writers and reader, and a device-to-device copy;
+6. the command line on the card, ``tpuhuff_torch.cli.main`` called in this
+   process (each call's counts set to 0 just before it and read just
+   after), each call's wall seconds and rate printed: ``--hf2 --device``
+   compress and decompress of the 100 MiB textlike file (K3, K1, K2, no
+   K4; SHA-equal to the host writer's); its ``.hff`` (K1), whose first
+   decode writes the ``.hf2x`` sidecar (byte-equal to
+   ``transcode_hff_to_hf2``) and whose second reuses it, and
+   ``--no-auto-index``; ``--reindex --hf2-block 256`` of that ``.hff``
+   decoded with ``-d --hf2 --device`` (K4, no K2); ``--dataset --adaptive
+   --device`` on three 8 MiB shards (K5), each shard decoded back;
+   ``--warmup``; and ``--profile DIR``, whose trace must hold a CUDA kernel
+   event of a port kernel.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of JAX, and nothing of the JAX
@@ -197,6 +210,163 @@ def same_file(a: str, b: str) -> bool:
                 return False
             if not x:
                 return True
+
+
+# the port's kernel names, as a device trace shows them
+KERNEL_NAMES = ("encode_tiles", "decode_rows_kernel",
+                "decode_rows_general_kernel", "hist256_kernel")
+
+
+def phase6_cli(work: str, dev, card: str, reset, read, np) -> None:
+    """Phase 6: the command line on the card, called in this process so
+    that the launch counters can be read; every step fails the run on a
+    wrong byte or a wrong launch count."""
+    import contextlib
+    import io
+
+    from tpuhuff_torch.cli import main as cli
+    from tpuhuff_torch.core.tree import HuffTree
+    from tpuhuff_torch.io import read_compress_write, transcode_hff_to_hf2
+    from tpuhuff_torch.io.host import (
+        AUTO_INDEX_MIN,
+        _read_hff_header,
+        read_compress_write_hf2_host,
+    )
+    from tpuhuff_torch.kernels import decode_rows, decoder_for
+    from tpuhuff_torch.profiling import TRACE_FILE
+
+    def run(label, argv, nbytes):
+        """One call, counted from 0: exit 0, its standard output, its wall
+        seconds and rate logged.  Returns (output, launches)."""
+        out = io.StringIO()
+        reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli(argv)
+        dt = time.perf_counter() - t0
+        counts = read()
+        text = out.getvalue()
+        if rc != 0:
+            fail(f"6 {label}: exit {rc}; output: {text!r}")
+        log(f"phase 6: {label}: {dt:.4f} s wall, {nbytes / dt / 1e9:.4f} "
+            f"GB/s on {nbytes} B, launches {counts} [{card}]")
+        for line in text.splitlines():
+            log(f"phase 6:   | {line}")
+        return text, counts
+
+    def restores(path, src, label):
+        if not same_file(path, src):
+            fail(f"6 {label}: {path} does not restore {src}")
+
+    d = os.path.join(work, "cli")
+    os.makedirs(d)
+    src = os.path.join(work, "textlike.bin")
+    size = os.path.getsize(src)
+
+    # (a) the .hf2 round trip: K3, K1 and K2; no K4
+    t = os.path.join(d, "t")
+    _, c1 = run("--hf2 --device -n --stats (compress)",
+                ["--hf2", "--device", "-n", "--stats", src, t], size)
+    _, c2 = run("-d --hf2 --device (decompress)",
+                ["-d", "--hf2", "--device", "-n", t + ".hf2", t + ".out"], size)
+    read_compress_write_hf2_host(src, t + ".ref", block_len=LANE,
+                                 max_code_len=32)
+    if sha(t + ".hf2") != sha(t + ".ref"):
+        fail("6a: the CLI's container differs from the host writer's")
+    restores(t + ".out", src, "6a")
+    if not (c1["histogram"] and c1["encode"] and c2["decode"]) or (
+            c1["decode_general"] or c2["decode_general"]):
+        fail(f"6a: wrong kernels: compress {c1}, decompress {c2}")
+    log("phase 6a: container sha256 == host writer's, round trip exact")
+
+    # (b) the .hff path: K1, then the sidecar created and reused
+    x = os.path.join(d, "x")
+    hff = x + ".hff"
+    _, c = run("--device -n (.hff compress)", ["--device", "-n", src, x], size)
+    if not c["encode"]:
+        fail(f"6b: K1 never launched: {c}")
+    with open(hff, "rb") as fp:
+        tree, _, header_len = _read_hff_header(fp, hff)
+    payload = os.path.getsize(hff) - header_len
+    if payload < AUTO_INDEX_MIN:
+        fail(f"6b: a payload of {payload} B is under AUTO_INDEX_MIN")
+    text, _ = run("-d (.hff, first)", ["-d", "-n", hff, x + ".o1"], size)
+    sidecar = hff + ".hf2x"
+    if "indexed" not in text or not os.path.exists(sidecar):
+        fail("6b: the first decode did not write the sidecar")
+    transcode_hff_to_hf2(hff, x + ".t.hf2", block_len=65536)
+    if not same_file(sidecar, x + ".t.hf2"):
+        fail("6b: the sidecar differs from transcode_hff_to_hf2's container")
+    text, _ = run("-d (.hff, second)", ["-d", "-n", hff, x + ".o2"], size)
+    if "using block-index sidecar" not in text:
+        fail("6b: the second decode did not reuse the sidecar")
+    os.remove(sidecar)
+    run("-d --no-auto-index (.hff)",
+        ["-d", "-n", "--no-auto-index", hff, x + ".o3"], size)
+    if os.path.exists(sidecar):
+        fail("6b: --no-auto-index wrote a sidecar")
+    for k in (1, 2, 3):
+        restores(f"{x}.o{k}", src, "6b")
+    log(f"phase 6b: .hff payload {payload} B >= AUTO_INDEX_MIN "
+        f"{AUTO_INDEX_MIN}; sidecar created (== transcode_hff_to_hf2's), "
+        "then reused; --no-auto-index wrote none; every decode exact")
+
+    # (c) the .hff re-indexed into 256-byte blocks: K4, no K2
+    if decoder_for(tree)[0] is decode_rows:
+        log("phase 6c: the .hff writer's tree of this input is canonical; "
+            "the .hff is written again under its mirror")
+        hff = x + ".mirror.hff"
+        read_compress_write(src, hff, device=dev, tree=HuffTree(
+            tree.right, tree.left, tree.letters, tree.weights, tree.root))
+    y = os.path.join(d, "y")
+    run("--reindex --hf2-block 256",
+        ["--reindex", "-n", "--hf2-block", "256", hff, y + ".hf2"], size)
+    _, c = run("-d --hf2 --device (reindexed)",
+               ["-d", "--hf2", "--device", "-n", y + ".hf2", y + ".out"], size)
+    if not c["decode_general"] or c["decode"]:
+        fail(f"6c: the reindexed container did not decode with K4 alone: {c}")
+    restores(y + ".out", src, "6c")
+    log("phase 6c: reindexed .hf2 decoded by K4 alone, exact")
+
+    # (d) an adaptive dataset of three small shards: K5
+    shards = []
+    for k in range(3):
+        path = os.path.join(d, f"shard{k}.bin")
+        make_textlike(8 << 20, np, seed=100 + k).tofile(path)
+        shards.append(path)
+    out_dir = os.path.join(d, "ds")
+    _, c = run("--dataset --adaptive --device",
+               ["--dataset", *shards, "--adaptive", "--device", "--out-dir",
+                out_dir, "-n", "--stats"],
+               sum(os.path.getsize(p) for p in shards))
+    if not c["encode_hist"]:
+        fail(f"6d: K5 never launched: {c}")
+    for path in shards:
+        hf2 = os.path.join(out_dir, os.path.basename(path) + ".hf2")
+        run("-d --hf2 --device (shard)",
+            ["-d", "--hf2", "--device", "-n", hf2, path + ".out"],
+            os.path.getsize(path))
+        restores(path + ".out", path, "6d")
+    log("phase 6d: every shard restored")
+
+    # (e) --warmup, and (f) a trace that names a port kernel
+    run("--warmup", ["--warmup"], 1 << 20)
+    rand = os.path.join(work, "random.bin")
+    trace_dir = os.path.join(d, "trace")
+    run("--profile DIR --hf2 --device",
+        ["--profile", trace_dir, "--hf2", "--device", "-n", rand,
+         os.path.join(d, "r")], os.path.getsize(rand))
+    with open(os.path.join(trace_dir, TRACE_FILE)) as fp:
+        events = json.load(fp)["traceEvents"]
+    kernels = sorted({e.get("name", "") for e in events
+                      if e.get("cat") == "kernel"})
+    ours = [n for n in kernels if any(k in n for k in KERNEL_NAMES)]
+    if not ours:
+        fail(f"6f: no port kernel in the trace's CUDA kernel events: "
+             f"{kernels[:10]}")
+    log(f"phase 6f: the trace holds {len(kernels)} CUDA kernel names, of "
+        f"which the port's: {ours}")
+    shutil.rmtree(d)
 
 
 def main() -> None:
@@ -476,6 +646,34 @@ def main() -> None:
             f"code {etab.max_len} bits, non-canonical tree, err {err}")
         if name == "textlike":
             gtab_text = gtab
+    # K4 on trees of two leaves (one-bit codes), either way round: the tree
+    # the TPU's general decoder cannot trace at one level
+    pair = np.where(np.random.default_rng(2).random(1 << 20) < 0.7, 0,
+                    255).astype(np.uint8)
+    pair_tree = HuffTree.from_weights(ByteWeights(np.bincount(pair,
+                                                              minlength=256)))
+    for way, tree in (("as built", pair_tree),
+                      ("mirrored", HuffTree(pair_tree.right, pair_tree.left,
+                                            pair_tree.letters,
+                                            pair_tree.weights,
+                                            pair_tree.root))):
+        lanes, _, etab, (_, bits, _), rows, bit0 = encode_rows(pair, tree)
+        nbits = bits.clone()
+        nbits[2::7] = (nbits[2::7] - 9).clamp(min=0)  # blocks cut short
+        gtab = make_decode_tables(tree).to(dev)
+        out = decode_rows_general(rows, bit0, nbits, gtab, LANE)
+        plain = decode_rows_general_reference(rows, bit0, nbits, gtab, LANE)
+        torch.cuda.synchronize()
+        err = max_err(torch, out, plain)
+        errs["decode_general"] = max(errs["decode_general"], err)
+        full = nbits == bits
+        if not torch.equal(out[full], lanes[full]):
+            fail(f"decode_general 2-leaf tree ({way}): the full blocks do "
+                 "not round-trip")
+        log(f"phase 3: decode_general on a 2-leaf tree ({way}, "
+            f"{'canonical' if make_canonical_decode_tables(tree) else 'not canonical'}"
+            f"): {lanes.shape[0]} blocks, max code {etab.max_len} bit, "
+            f"err {err}")
     # rows of random words: not codes, but each kernel must still agree
     # with its plain version
     B, W = 1 << 14, 40
@@ -664,9 +862,14 @@ def main() -> None:
     log(f"phase 3: encode at lanes of 8 B ({lanes8.shape[0]} lanes, {R8} "
         f"words each): K1 {k1_8:.4f} ms, K5 (operand the lanes) {k5_8:.4f} "
         f"ms, bound {bound8:.4f} ms [{card}]")
-    # the encode kernels' second reading: the device's time alone, beside
-    # the wrapper's host time per call (the times above hold the larger)
+    # every kernel's second reading: the device's time alone, beside the
+    # wrapper's host time per call (the times above hold the larger)
     alone = {
+        "K2": lambda: decode_rows(s["rows"], s["bit0"], s["nbits"],
+                                  s["dtab"], LANE),
+        "K3": lambda: histogram(hist_chunk),
+        "K4": lambda: decode_rows_general(s["grows"], s["bit0"], s["gnbits"],
+                                          s["gtab"], LANE),
         "K1": lambda: encode_blocks(s["lanes"], s["valid"], s["etab"]),
         "K5": lambda: encode_blocks(s["lanes"], s["valid"], s["etab"],
                                     hist_data=s["lanes"]),
@@ -940,6 +1143,10 @@ def main() -> None:
         for key, d in dts.items():
             log(f"phase 5: {key}: {total / min(d) / 1e9:.4f} GB/s wall, best "
                 f"of {len(d)} on {total} B ({N_SHARDS} shards) [{card}]")
+
+        # -- phase 6: the command line ---------------------------------------
+        shutil.rmtree(out_dir)
+        phase6_cli(work, dev, card, reset, read, np)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

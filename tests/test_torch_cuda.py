@@ -209,3 +209,45 @@ def test_histogram_kernel_matches_plain(dev, n):
         got = histogram(view)
         torch.cuda.synchronize()
         assert torch.equal(got, histogram_reference(view))
+
+
+@pytest.mark.parametrize("block_len", [256, 1000])
+@pytest.mark.parametrize("mirrored", [False, True])
+@pytest.mark.parametrize("letters", [(97, 98), (0, 255)])
+def test_decode_general_two_leaf_tree(dev, letters, mirrored, block_len):
+    """K4 on a tree of two leaves (one-bit codes; the tree the JAX Pallas
+    kernel cannot trace at ``levels=1``), either way round, whole blocks
+    and blocks cut short: bit-exact against its plain version, and whole
+    blocks restore their source."""
+    rng = np.random.default_rng(sum(letters) + block_len + mirrored)
+    B = 600
+    data = np.where(rng.random((B, block_len)) < 0.7, letters[0],
+                    letters[1]).astype(np.uint8)
+    counts = np.bincount(data.reshape(-1), minlength=256)
+    tree = HuffTree.from_weights(ByteWeights(counts))
+    assert (tree.encode_tables()[0] > 0).sum() == 2
+    if mirrored:
+        tree = HuffTree(tree.right, tree.left, tree.letters, tree.weights,
+                        tree.root)
+    tables = make_decode_tables(tree).to(dev)
+    payload, _, bit_lens = native.encode_blocks_host(
+        data, block_len, *tree.encode_tables())
+    ends = np.cumsum(bit_lens.astype(np.int64))
+    starts = ends - bit_lens.astype(np.int64)
+    rows_np, bit0_np = payload_to_lane_words(payload, starts, ends, block_len)
+    rows = torch.from_numpy(rows_np.view(np.int32)).to(dev)
+    bit0 = torch.from_numpy(bit0_np).to(dev)
+    nbits_np = (ends - starts).astype(np.int32)
+    for cut in (False, True):
+        if cut:
+            nbits_np[::3] = np.maximum(nbits_np[::3] - 5, 0)
+        nbits = torch.from_numpy(nbits_np).to(dev)
+        before = decode_rows_general.launches
+        got = decode_rows_general(rows, bit0, nbits, tables, block_len)
+        torch.cuda.synchronize()
+        assert decode_rows_general.launches == before + 1
+        want = decode_rows_general_reference(rows, bit0, nbits, tables,
+                                             block_len)
+        assert torch.equal(got, want)
+        if not cut:
+            assert torch.equal(got.cpu(), torch.from_numpy(data))

@@ -112,3 +112,59 @@ def test_port_runs_without_jax():
                        text=True, timeout=120, env=env, cwd=ROOT)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+
+
+def test_guard_covers_the_host_and_entry_modules():
+    """The import guard above scans the command line, the profiling and
+    the index modules."""
+    scanned = {os.path.relpath(p, ROOT) for p in _python_files()}
+    for path in ("tpuhuff_torch/cli/main.py", "tpuhuff_torch/cli/__init__.py",
+                 "tpuhuff_torch/cli/__main__.py", "tpuhuff_torch/__main__.py",
+                 "tpuhuff_torch/profiling.py", "tpuhuff_torch/io/index.py",
+                 "tpuhuff_torch/io/host.py", "tpuhuff_torch/native.py"):
+        assert path in scanned, path
+
+
+def _run_python(code: str) -> None:
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", f"import sys\n"
+                        f"sys.path.insert(0, {ROOT!r})\n" + code],
+                       capture_output=True, text=True, timeout=120, env=env,
+                       cwd=ROOT)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("module", [
+    "tpuhuff_torch", "tpuhuff_torch.core", "tpuhuff_torch.native",
+    "tpuhuff_torch.io", "tpuhuff_torch.io.hff", "tpuhuff_torch.io.host",
+    "tpuhuff_torch.io.index", "tpuhuff_torch.io.dataset",
+    "tpuhuff_torch.profiling", "tpuhuff_torch.cli"])
+def test_host_modules_import_without_torch(module):
+    """The host layers import no torch, so that a host-only use keeps its
+    address space small."""
+    _run_python(
+        "import importlib\n"
+        f"importlib.import_module({module!r})\n"
+        "assert 'torch' not in sys.modules, sorted(\n"
+        "    m for m in sys.modules if m.startswith('tpuhuff_torch'))\n"
+        "print('ok')\n")
+
+
+def test_lazy_names_load_the_device_modules():
+    """Every public name of ``tpuhuff_torch`` and ``tpuhuff_torch.io``
+    still loads, the device ones with torch."""
+    _run_python(
+        "import tpuhuff_torch, tpuhuff_torch.io as io\n"
+        "assert 'torch' not in sys.modules\n"
+        "from tpuhuff_torch.io import read_compress_write_hf2\n"
+        "assert 'torch' in sys.modules\n"
+        "assert sorted(io.__all__) == sorted(io._EXPORTS)\n"
+        "for pkg in (tpuhuff_torch, io):\n"
+        "    for name in pkg.__all__:\n"
+        "        assert callable(getattr(pkg, name)), name\n"
+        "    assert set(pkg.__all__) <= set(dir(pkg))\n"
+        "try:\n"
+        "    io.no_such_name\n"
+        "except AttributeError:\n"
+        "    print('ok')\n")

@@ -140,8 +140,12 @@ def test_hff_stale_tree_raises(tmp_path, device):
 def test_hff_reader_refuses(tmp_path):
     data = _textlike(10_000, 8)
     port, _ = _write_both(tmp_path, data, False)
-    with pytest.raises(NotImplementedError, match="sidecar"):
-        read_decompress_write(port, str(tmp_path / "o"), auto_index=True)
+    # auto_index=True decodes and writes the sidecar (tests/test_torch_index.py)
+    stats = {}
+    read_decompress_write(port, str(tmp_path / "o"), auto_index=True,
+                          stats=stats)
+    assert stats["auto_index"] == "created"
+    assert open(str(tmp_path / "o"), "rb").read() == data.tobytes()
     short = tmp_path / "short.hff"
     short.write_bytes(b"\x00\x00")
     with pytest.raises(StreamError) as err:

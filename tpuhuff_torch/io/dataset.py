@@ -15,12 +15,15 @@ frequency tables that are not rebuilt per file:
   tree; still one pass per shard, while the tables follow drifting data.
 
 Every container carries its own tree, so each shard decodes on its own
-(:func:`decompress_dataset`).  The trees are always the device's: limited
-to 16-bit codes and canonical.
+(:func:`decompress_dataset`).  On a device the trees are the device's:
+limited to 16-bit codes and canonical.  ``device="host"`` takes the
+port's host C++ writers and reader instead, with the JAX package's
+``device=False`` trees (not length-limited), and imports no torch.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Iterable, Sequence
 
@@ -29,12 +32,13 @@ import numpy as np
 from ..core.canonical import build_tree_for_device, canonicalize
 from ..core.tree import HuffTree
 from ..core.weights import ByteWeights
-from .host import _CHUNK, _sampled_pieces, read_decompress_write
-from .stream import (
-    _resolve,
-    read_compress_write,
-    read_compress_write_hf2,
-    read_decompress_write_hf2,
+from .host import (
+    _CHUNK,
+    _sampled_pieces,
+    read_compress_write_hf2_host,
+    read_compress_write_host,
+    read_decompress_write,
+    read_decompress_write_hf2_host,
 )
 
 __all__ = ["build_shared_tree", "compress_dataset", "decompress_dataset",
@@ -85,6 +89,10 @@ def build_shared_tree(
     return tree_from_counts(counts, device=device, canonical=canonical)
 
 
+def _on_host(device) -> bool:
+    return isinstance(device, str) and device == "host"
+
+
 def _dst_paths(srcs: Sequence[str], dsts, out_dir, ext: str) -> list:
     if dsts is not None:
         if len(dsts) != len(srcs):
@@ -113,9 +121,10 @@ def compress_dataset(
     stats: dict | None = None,
 ) -> list:
     """Compress many files under shared frequency tables on ``device`` (a
-    torch device; ``"cpu"`` runs the kernels' plain versions).  Returns the
-    output paths: ``dsts``, or ``<out_dir>/<name>.hf2`` (``.hff`` when not
-    ``hf2``).
+    torch device; ``"cpu"`` runs the kernels' plain versions; ``"host"``
+    the host C++ writers, as the JAX package's ``device=False``).  Returns
+    the output paths: ``dsts``, or ``<out_dir>/<name>.hf2`` (``.hff`` when
+    not ``hf2``).
 
     The first tree is ``tree``, else :func:`build_shared_tree` over
     ``tree_from``, else over ``srcs[:1]`` when ``adaptive``, else over all
@@ -131,30 +140,42 @@ def compress_dataset(
     if adaptive and not hf2:
         raise ValueError("adaptive refresh requires the .hf2 writer "
                          "(the .hff path gathers no encode-time histogram)")
-    dev = _resolve(device)
+    on_device = not _on_host(device)
+    if on_device:
+        from .stream import (
+            _resolve,
+            read_compress_write,
+            read_compress_write_hf2,
+        )
+
+        dev = _resolve(device)
+        write_hf2 = functools.partial(read_compress_write_hf2, device=dev)
+        write_hff = functools.partial(read_compress_write, device=dev)
+    else:
+        write_hf2 = read_compress_write_hf2_host
+        write_hff = read_compress_write_host
     outs = _dst_paths(srcs, dsts, out_dir, "hf2" if hf2 else "hff")
     tree_builds = 0
     if tree is None:
         seed = tree_from if tree_from is not None else (
             srcs[:1] if adaptive else srcs)
         tree = build_shared_tree(seed, hist_sample=hist_sample,
-                                 canonical=canonical)
+                                 device=on_device, canonical=canonical)
         tree_builds += 1
     total_in = total_out = 0
     for k, (src, dst) in enumerate(zip(srcs, outs)):
         if hf2:
             # the last shard's histogram would build a tree nothing uses
             refresh = adaptive and k + 1 < len(srcs)
-            hist = read_compress_write_hf2(
-                src, dst, block_len=block_len, device=dev,
-                canonical=canonical, check=check, tree=tree,
-                collect_hist=refresh,
-            )
+            hist = write_hf2(src, dst, block_len=block_len,
+                             canonical=canonical, check=check, tree=tree,
+                             collect_hist=refresh)
             if refresh:
-                tree = tree_from_counts(hist, canonical=canonical)
+                tree = tree_from_counts(hist, device=on_device,
+                                        canonical=canonical)
                 tree_builds += 1
         else:
-            read_compress_write(src, dst, tree=tree, device=dev)
+            write_hff(src, dst, tree=tree)
         total_in += os.path.getsize(src)
         total_out += os.path.getsize(dst)
     if stats is not None:
@@ -170,14 +191,22 @@ def decompress_dataset(
     dsts: Sequence[str] | None = None,
     device="cuda",
     check: bool = True,
+    threads: int | None = None,
 ) -> list:
     """Decode a dataset's shards (the inverse of :func:`compress_dataset`):
-    ``.hf2`` shards on ``device`` (:func:`read_decompress_write_hf2`),
-    ``.hff`` shards on the host (:func:`read_decompress_write`), as the
-    JAX package does.  Output names strip the container extension
+    ``.hf2`` shards on ``device`` (:func:`read_decompress_write_hf2`;
+    ``"host"``: :func:`read_decompress_write_hf2_host`, on ``threads``
+    threads), ``.hff`` shards on the host (:func:`read_decompress_write`),
+    as the JAX package does.  Output names strip the container extension
     (``x.bin.hf2 -> x.bin``); other names get ``.dec``."""
     srcs = [os.fspath(s) for s in srcs]
-    dev = _resolve(device)
+    if _on_host(device):
+        decode_hf2 = read_decompress_write_hf2_host
+    else:
+        from .stream import _resolve, read_decompress_write_hf2
+
+        dev = _resolve(device)
+        decode_hf2 = functools.partial(read_decompress_write_hf2, device=dev)
     if dsts is None:
         base = out_dir if out_dir is not None else "."
         os.makedirs(base, exist_ok=True)
@@ -193,5 +222,5 @@ def decompress_dataset(
         if src.endswith(".hff"):
             read_decompress_write(src, dst)
         else:
-            read_decompress_write_hf2(src, dst, device=dev, check=check)
+            decode_hf2(src, dst, check=check, threads=threads)
     return list(dsts)

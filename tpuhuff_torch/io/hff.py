@@ -2,7 +2,8 @@
 and the header reader.
 
 The port's copy of the ``.hf2`` part of :mod:`tpuhuff.io.hff`, writing
-and reading the same bytes.  Version 2 (written) layout:
+and reading the same bytes (:func:`write_hf2` writes a whole container
+in one call).  Version 2 (written) layout:
 
 ```
 bytes 0..4   : magic "HF2\\x02"
@@ -44,6 +45,7 @@ __all__ = [
     "write_hf2_prelude",
     "write_hf2_table_slice",
     "write_hf2_crc_slice",
+    "write_hf2",
     "read_hf2_header",
 ]
 
@@ -65,6 +67,10 @@ class Hf2Header:
     @property
     def num_blocks(self) -> int:
         return int(self.end_bits.size)
+
+    @property
+    def total_bits(self) -> int:
+        return int(self.end_bits[-1]) if self.end_bits.size else 0
 
 
 def default_crc_every(block_len: int) -> int:
@@ -149,6 +155,47 @@ def write_hf2_crc_slice(
     fp.write(np.ascontiguousarray(crcs, dtype=np.uint32).astype(">u4")
              .tobytes())
     fp.seek(pos)
+
+
+def write_hf2(
+    fp: BinaryIO,
+    tree: HuffTree,
+    orig_len: int,
+    block_len: int,
+    end_bits: np.ndarray,
+    payload: bytes,
+    canonical: bool = False,
+    version: int = 2,
+) -> None:
+    """Write a whole container from its block end bits and payload: v2
+    with no CRC column (no original bytes are in scope), or v1 with
+    ``version=1``."""
+    tree_bin = tree.as_bin()
+    tree_padding = calc_padding_bits(len(tree_bin))
+    tree_bytes = tree_bin.to_bytes()
+    end = np.ascontiguousarray(end_bits, dtype=np.uint64)
+    if version == 1:
+        fp.write(HF2_MAGIC_V1)
+        fp.write(bytes([1 if canonical else 0]))
+        fp.write(struct.pack(">I", len(tree_bytes)))
+        fp.write(bytes([tree_padding]))
+        fp.write(struct.pack(">Q", orig_len))
+        fp.write(struct.pack(">I", block_len))
+        fp.write(struct.pack(">I", end.size))
+        fp.write(end.astype(">u8").tobytes())
+        fp.write(tree_bytes)
+        fp.write(payload)
+        return
+    if version != 2:
+        raise ValueError(f"unknown hf2 version {version}")
+    lens = np.diff(end, prepend=np.uint64(0))
+    lens_lut, _ = tree.encode_tables()
+    width = hf2_table_width(block_len, int(np.asarray(lens_lut).max(initial=1)))
+    table_off, _, _ = write_hf2_prelude(fp, tree, orig_len, block_len,
+                                        end.size, width, canonical)
+    write_hf2_table_slice(fp, table_off, width, 0, lens)
+    fp.seek(0, 2)
+    fp.write(payload)
 
 
 def read_hf2_header(fp: BinaryIO) -> Hf2Header:

@@ -16,8 +16,10 @@ and reading the same bytes:
   device decode: an empty file, a one-letter tree and blocks longer than
   2048 bytes;
 * :func:`read_compress_write_host` and :func:`read_decompress_write` — the
-  reference's ``.hff`` format: the ``device=False`` writer, and the serial
-  reader (the ``.hf2x`` sidecar index of the JAX reader is not ported).
+  reference's ``.hff`` format: the ``device=False`` writer, and the reader,
+  which indexes a large ``.hff`` into a ``<src>.hf2x`` sidecar on its
+  first decode and reuses it after (:mod:`.index`);
+* :func:`huff_tree_from_stream` — pass 1 of the ``.hff`` writers.
 
 All run on the port's C++ host runtime (:mod:`tpuhuff_torch.native`);
 there is no Python fallback.
@@ -26,6 +28,7 @@ there is no Python fallback.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import os
 import zlib
 from typing import BinaryIO
@@ -48,6 +51,7 @@ from .hff import (
 
 __all__ = [
     "StreamError",
+    "AUTO_INDEX_MIN",
     "DEFAULT_BLOCK",
     "DEVICE_HF2_BLOCK",
     "HOST_HF2_BLOCK",
@@ -55,13 +59,19 @@ __all__ = [
     "read_decompress_write_hf2_host",
     "read_compress_write_host",
     "read_decompress_write",
+    "huff_tree_from_stream",
 ]
 
 _CHUNK = 64 << 20  # streaming granularity, independent of the block length
 _PASS1_PIECE = 256 << 20  # pass 1 reads (and samples) at most this at once
+_NO_TIMING = contextlib.nullcontext()
 DEFAULT_BLOCK = 2_000_000_000  # the reference's default block size ("2G")
 DEVICE_HF2_BLOCK = 256  # the device writer's default block
 HOST_HF2_BLOCK = 65536  # the host writer's: per-block dispatch dominates below
+# a .hff payload of at least this many bytes is indexed into a sidecar on
+# its first decode (one extra payload copy then; block-parallel decodes
+# from then on)
+AUTO_INDEX_MIN = 32 << 20
 
 
 class StreamError(ValueError):
@@ -112,29 +122,17 @@ def _block_bits(hdr, src_path: str) -> tuple[np.ndarray, np.ndarray]:
     return np.concatenate([[np.uint64(0)], ends[:-1]]), ends
 
 
-class _CrcVerifier:
-    """Streaming verifier of the ``.hf2`` CRC column.
-
-    Fed the decoded output in file order (any piece sizes); compares each
-    completed span's CRC with the stored column and raises
-    ``StreamError(kind="CorruptData")`` at the first mismatch.  Whole
+class _CrcCollector:
+    """Producer of the ``.hf2`` CRC column: fed the decoded bytes in file
+    order (any piece sizes), it keeps one CRC32 per ``span_bytes``.  Whole
     spans go through the threaded C++ CRC; ragged edges chain through
-    ``zlib.crc32``.
-    """
+    ``zlib.crc32``."""
 
-    def __init__(self, crcs: np.ndarray, span_bytes: int, path: str):
-        self.crcs = np.asarray(crcs, dtype=np.uint32)
+    def __init__(self, span_bytes: int):
         self.span = int(span_bytes)
-        self.path = path
-        self.idx = 0      # next span to complete
+        self.crcs: list = []
         self.run = 0      # running CRC of the current partial span
         self.in_span = 0  # bytes fed into the current span
-
-    def _fail(self, k: int) -> None:
-        raise StreamError(
-            f"{self.path!r} block CRC mismatch in span {k} "
-            f"(corrupt payload or index)", "CorruptData",
-        )
 
     def feed(self, piece) -> None:
         arr = np.frombuffer(piece, dtype=np.uint8) if isinstance(
@@ -144,14 +142,8 @@ class _CrcVerifier:
         while pos < n:
             if self.in_span == 0 and n - pos >= self.span:
                 k = (n - pos) // self.span
-                got = native.crc32_blocks(arr[pos : pos + k * self.span],
-                                          self.span)
-                want = self.crcs[self.idx : self.idx + k]
-                if want.size < k:
-                    self._fail(self.idx + want.size)
-                if not np.array_equal(got, want):
-                    self._fail(self.idx + int(np.argmax(got != want)))
-                self.idx += k
+                self.crcs.extend(native.crc32_blocks(
+                    arr[pos : pos + k * self.span], self.span).tolist())
                 pos += k * self.span
                 continue
             take = min(self.span - self.in_span, n - pos)
@@ -161,21 +153,59 @@ class _CrcVerifier:
             self.in_span += take
             pos += take
             if self.in_span == self.span:
-                if (self.idx >= self.crcs.size
-                        or self.run != int(self.crcs[self.idx])):
-                    self._fail(self.idx)
-                self.idx += 1
+                self.crcs.append(self.run)
                 self.run = 0
                 self.in_span = 0
 
-    def finish(self) -> None:
+    def finish(self) -> np.ndarray:
         if self.in_span:
-            if (self.idx >= self.crcs.size
-                    or self.run != int(self.crcs[self.idx])):
-                self._fail(self.idx)
-            self.idx += 1
+            self.crcs.append(self.run)
             self.run = 0
             self.in_span = 0
+        return np.asarray(self.crcs, dtype=np.uint32)
+
+
+class _CrcVerifier:
+    """Streaming verifier of the ``.hf2`` CRC column.
+
+    Fed the decoded output in file order (any piece sizes), it computes
+    the spans' CRCs with a :class:`_CrcCollector` and compares each
+    completed span's with the stored column, raising
+    ``StreamError(kind="CorruptData")`` at the first mismatch (or at the
+    first span past the column's end).
+    """
+
+    def __init__(self, crcs: np.ndarray, span_bytes: int, path: str):
+        self.crcs = np.asarray(crcs, dtype=np.uint32)
+        self.path = path
+        self.collector = _CrcCollector(span_bytes)
+        self.idx = 0  # spans checked so far
+
+    def _fail(self, k: int) -> None:
+        raise StreamError(
+            f"{self.path!r} block CRC mismatch in span {k} "
+            f"(corrupt payload or index)", "CorruptData",
+        )
+
+    def _check(self) -> None:
+        """Compare the spans completed since the last check, then drop
+        them, so that memory stays bounded whatever the file's size."""
+        got = np.asarray(self.collector.crcs, dtype=np.uint32)
+        self.collector.crcs.clear()
+        want = self.crcs[self.idx : self.idx + got.size]
+        if want.size < got.size:
+            self._fail(self.idx + want.size)
+        if not np.array_equal(got, want):
+            self._fail(self.idx + int(np.argmax(got != want)))
+        self.idx += got.size
+
+    def feed(self, piece) -> None:
+        self.collector.feed(piece)
+        self._check()
+
+    def finish(self) -> None:
+        self.collector.finish()
+        self._check()
 
 
 class _BitSink:
@@ -328,6 +358,21 @@ def _weights_from_stream(fp: BinaryIO, size: int, step: int,
     return bw
 
 
+def huff_tree_from_stream(fp: BinaryIO, size: int, block_size: int,
+                          hist_sample: int = 1) -> HuffTree:
+    """Pass 1 of the ``.hff`` writers: the reference's tree of the first
+    ``size`` bytes of ``fp``, counted in pieces of ``min(block_size,
+    64 MiB)`` (``hist_sample > 1``: the first ``1/hist_sample`` of each
+    piece, plus one in every bin)."""
+    return HuffTree.from_weights(_weights_from_stream(
+        fp, size, min(block_size, _CHUNK), hist_sample))
+
+
+def _stage(timer, name: str, nbytes: int):
+    """``timer.stage(name, nbytes)``, or no timing without a timer."""
+    return timer.stage(name, nbytes) if timer is not None else _NO_TIMING
+
+
 def _host_tree(bw: ByteWeights, max_code_len: int | None) -> HuffTree:
     """The host writers' tree: the reference's, or the optimal tree limited
     to ``max_code_len`` bits when one is given."""
@@ -414,7 +459,7 @@ def read_compress_write_hf2_host(
 def read_compress_write_host(
     src_path: str, dst_path: str, block_size: int = DEFAULT_BLOCK,
     hist_sample: int = 1, tree: HuffTree | None = None,
-    max_code_len: int | None = None,
+    max_code_len: int | None = None, timer=None,
 ) -> None:
     """Compress into the reference's ``.hff`` format on the host; the same
     bytes as ``tpuhuff.io.stream.read_compress_write(..., device=False)``.
@@ -424,14 +469,17 @@ def read_compress_write_host(
     :func:`read_compress_write_hf2_host`; the tree is the reference's, or
     limited to ``max_code_len`` bits.  A ``tree`` with no code for some
     byte of the file raises :class:`CompressError`.  Pass 2 encodes piece
-    k on a worker thread while piece k-1 is written.
+    k on a worker thread while piece k-1 is written.  A ``timer``
+    (:class:`tpuhuff_torch.profiling.StageTimer`) records the stages
+    ``histogram`` and ``write``.
     """
     size = os.path.getsize(src_path)
     step = min(block_size, _CHUNK)
     with open(src_path, "rb") as src, open(dst_path, "wb") as dst:
         if tree is None:
-            tree = _host_tree(_weights_from_stream(src, size, step, hist_sample),
-                              max_code_len)
+            with _stage(timer, "histogram", size):
+                bw = _weights_from_stream(src, size, step, hist_sample)
+            tree = _host_tree(bw, max_code_len)
         sink = _HffSink(dst, tree)
         lens_lut, codes_lut = tree.encode_tables()
         src.seek(0)
@@ -440,19 +488,24 @@ def read_compress_write_host(
             payload, pad = native.encode(data, lens_lut, codes_lut)
             return payload, len(payload) * 8 - pad
 
+        def collect(fut) -> None:
+            payload, nbits = fut.result()
+            with _stage(timer, "write", (nbits + 7) // 8):
+                sink.write(payload, nbits)
+
         with concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:
             _pipeline(src, size, step,
-                      lambda data, slot: ex.submit(encode_job, data),
-                      lambda fut: sink.write(*fut.result()))
+                      lambda data, slot: ex.submit(encode_job, data), collect)
         sink.finish()
 
 
 def read_decompress_write_hf2_host(
     src_path: str, dst_path: str, chunk_bytes: int | None = None,
-    check: bool = True,
+    check: bool = True, threads: int | None = None,
 ) -> None:
-    """Decode ``.hf2`` with the threaded C++ DFA, in groups of about
-    ``chunk_bytes`` output bytes; the native route of
+    """Decode ``.hf2`` with the threaded C++ DFA (``threads`` threads, by
+    default one per core), in groups of about ``chunk_bytes`` output
+    bytes; the native route of
     ``tpuhuff.io.stream.read_decompress_write_hf2(..., device=False)``.
 
     ``check`` verifies the CRC32 column (when present) on a worker thread,
@@ -506,7 +559,7 @@ def read_decompress_write_hf2_host(
                 offs = np.arange(nb, dtype=np.uint64) * hdr.block_len
                 try:
                     out, out_lens = native.decode_blocks(buf, ls, le, tables,
-                                                         offs, caps)
+                                                         offs, caps, threads)
                 except RuntimeError:
                     # a corrupt payload can overflow a block's output slot
                     raise _invalid(src_path) from None
@@ -527,6 +580,32 @@ def read_decompress_write_hf2_host(
                 verifier.finish()
         finally:
             pool.shutdown(wait=False)
+
+
+class _Window:
+    """The payload window of a ``.hff`` walk: the whole bytes before
+    ``pos_bit`` are dropped, and up to ``step`` more are read ahead."""
+
+    def __init__(self, src: BinaryIO, total_bits: int, step: int):
+        self.src, self.total_bits, self.step = src, total_bits, step
+        self.data = b""
+        self.byte0 = 0  # payload byte index of data[0]
+
+    def slide(self, pos_bit: int) -> tuple[np.ndarray, int]:
+        """``(bytes, end_bit)``: the window from ``pos_bit``'s byte, and
+        the payload bit it ends at; local bit offsets subtract
+        ``8 * byte0``."""
+        drop = pos_bit // 8 - self.byte0
+        if drop > 0:
+            self.data = self.data[drop:]
+            self.byte0 += drop
+        want_end = min(self.byte0 + len(self.data) + self.step,
+                       (self.total_bits + 7) // 8)
+        need = want_end - (self.byte0 + len(self.data))
+        if need > 0:
+            self.data += self.src.read(need)
+        end_bit = min((self.byte0 + len(self.data)) * 8, self.total_bits)
+        return np.frombuffer(self.data, dtype=np.uint8), end_bit
 
 
 def _read_hff_header(src: BinaryIO, src_path: str):
@@ -558,26 +637,88 @@ def _read_hff_header(src: BinaryIO, src_path: str):
     return tree, data_padding, 5 + tree_len
 
 
+def _decode_with_sidecar(src_path: str, dst_path: str,
+                         stats: dict | None) -> bool:
+    """The sidecar route of :func:`read_decompress_write`: False where
+    the serial decode must run after all."""
+    from .index import _sidecar_matches, decode_hff_indexed
+
+    sidecar = src_path + ".hf2x"
+    try:
+        fresh = (os.path.exists(sidecar)
+                 and os.path.getmtime(sidecar) >= os.path.getmtime(src_path)
+                 and _sidecar_matches(src_path, sidecar))
+    except OSError:
+        fresh = False
+    if fresh:
+        try:
+            read_decompress_write_hf2_host(sidecar, dst_path)
+            if stats is not None:
+                stats["auto_index"] = "reused"
+            return True
+        except StreamError:
+            # a bad sidecar is not a bad source: drop it and build it again
+            try:
+                os.remove(sidecar)
+            except OSError:
+                pass
+    # a name of this process's own, so that two decoders never write into
+    # one file (a torn sidecar would be served to later decodes)
+    tmp = f"{sidecar}.tmp.{os.getpid()}"
+    try:
+        try:
+            wrote = decode_hff_indexed(src_path, dst_path, tmp)
+        except StreamError:
+            raise  # a malformed source: the serial decode's error
+        except Exception:  # noqa: BLE001 - the serial decode runs instead
+            if stats is not None:
+                stats["auto_index"] = "failed"
+            return False
+        if wrote:
+            try:
+                os.replace(tmp, sidecar)
+            except OSError:
+                wrote = False
+        if stats is not None:
+            stats["auto_index"] = "created" if wrote else "nosidecar"
+        return True
+    finally:
+        if os.path.exists(tmp):
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+
+
 def read_decompress_write(
     src_path: str, dst_path: str, block_size: int = DEFAULT_BLOCK,
-    auto_index: bool | None = None,
+    auto_index: bool | None = None, stats: dict | None = None,
 ) -> None:
     """Decode a ``.hff`` file, streaming; the same bytes as
     ``tpuhuff.io.stream.read_decompress_write`` (`huff/src/comp.rs:79-157`).
 
-    The payload is read in windows of ``min(max(block_size, 1 MiB),
-    64 MiB)`` and decoded serially by the C++ DFA; a code that straddles a
-    window's end is decoded again from the next window.  A one-letter tree
-    emits one letter per payload bit.  The JAX reader's ``.hf2x`` sidecar
-    index is not ported: ``auto_index=True`` raises
-    :class:`NotImplementedError`, and the default decodes serially.
+    ``auto_index`` (by default: a file of at least :data:`AUTO_INDEX_MIN`
+    bytes): a ``.hff`` has no block boundaries, so its first decode also
+    writes a ``<src>.hf2x`` sidecar (the same tree and payload bits and a
+    block index, :func:`.index.decode_hff_indexed`), and later decodes
+    take the sidecar's blocks in parallel
+    (:func:`read_decompress_write_hf2_host`).  A sidecar older than the
+    source, or not built from it (:func:`.index._sidecar_matches`), or
+    that fails to decode, is built again.  ``stats["auto_index"]`` says
+    what happened: ``"created"``, ``"reused"``, ``"nosidecar"`` (decoded,
+    sidecar not written) or ``"failed"`` (the indexed decode failed and
+    the serial one ran).
+
+    Otherwise the payload is read in windows of ``min(max(block_size,
+    1 MiB), 64 MiB)`` and decoded serially by the C++ DFA; a code that
+    straddles a window's end is decoded again from the next window.  A
+    one-letter tree emits one letter per payload bit.
     """
-    if auto_index:
-        raise NotImplementedError(
-            "auto_index: the .hf2x sidecar index (decode_hff_indexed, "
-            "transcode_hff_to_hf2) is not ported yet (ROADMAP.md section 1, "
-            "item 2)")
     size = os.path.getsize(src_path)
+    want_auto = auto_index if auto_index is not None else (
+        size >= AUTO_INDEX_MIN)
+    if want_auto and _decode_with_sidecar(src_path, dst_path, stats):
+        return
     with open(src_path, "rb") as src, open(dst_path, "wb") as dst:
         tree, data_padding, header_len = _read_hff_header(src, src_path)
         payload_len = size - header_len
@@ -593,29 +734,18 @@ def read_decompress_write(
                 left_bits -= emit
             return
         tables = native.build_dfa(tree)
-        step_bytes = min(max(block_size, 1 << 20), _CHUNK)
+        window = _Window(src, total_bits, min(max(block_size, 1 << 20), _CHUNK))
         pos_bit = 0   # next bit to decode (in the payload)
-        window = b""
-        win_byte = 0  # payload byte index of window[0]
         while pos_bit < total_bits:
-            # slide the window: drop consumed whole bytes, read ahead
-            drop = pos_bit // 8 - win_byte
-            if drop > 0:
-                window = window[drop:]
-                win_byte += drop
-            want_end = min(win_byte + len(window) + step_bytes,
-                           (total_bits + 7) // 8)
-            need = want_end - (win_byte + len(window))
-            if need > 0:
-                window += src.read(need)
-            end_bit = min((win_byte + len(window)) * 8, total_bits)
-            out, resume = native.decode_resume(
-                np.frombuffer(window, dtype=np.uint8), pos_bit - win_byte * 8,
-                end_bit - win_byte * 8, tables, end_bit - pos_bit)
+            arr, end_bit = window.slide(pos_bit)
+            base = window.byte0 * 8
+            out, resume = native.decode_resume(arr, pos_bit - base,
+                                               end_bit - base, tables,
+                                               end_bit - pos_bit)
             dst.write(out)
             if end_bit == total_bits:
                 break  # the tail bits are padding: done
-            new_pos = resume + win_byte * 8
+            new_pos = resume + base
             if new_pos <= pos_bit:
                 raise _invalid(src_path)
             pos_bit = new_pos

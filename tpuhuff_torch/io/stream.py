@@ -57,6 +57,7 @@ from .host import (
     _read_header,
     _record_call,
     _sampled_pieces,
+    _stage,
     _start_hf2,
     _weights_from_stream,
     read_decompress_write_hf2_host,
@@ -275,6 +276,7 @@ def read_compress_write(
     src_path: str, dst_path: str, block_size: int = DEFAULT_BLOCK,
     device="cuda", stats: dict | None = None, hist_sample: int = 1,
     tree: HuffTree | None = None, max_code_len: int | None = None,
+    timer=None,
 ) -> None:
     """Compress into the reference's ``.hff`` format on ``device``; writes
     the same bytes as ``tpuhuff.io.stream.read_compress_write(...,
@@ -287,14 +289,18 @@ def read_compress_write(
     piece as 256-byte lanes with :func:`encode_blocks` (K1), piece k+1
     launched before piece k is stitched and written; a byte with no code
     raises :class:`CompressError`.  ``stats["device_call_s"]`` gets each
-    piece's submit-to-collect wall time.
+    piece's submit-to-collect wall time.  A ``timer``
+    (:class:`tpuhuff_torch.profiling.StageTimer`) records the stages
+    ``histogram`` (pass 1), ``pack`` (lanes, copies and launch, with the
+    piece's bytes; then the wait and the host stitch) and ``write``.
     """
     dev = _resolve(device)
     size = os.path.getsize(src_path)
     step = min(block_size, _CHUNK)
     with open(src_path, "rb") as src, open(dst_path, "wb") as dst:
         if tree is None:
-            bw = _weights_from_stream(src, size, step, hist_sample)
+            with _stage(timer, "histogram", size):
+                bw = _weights_from_stream(src, size, step, hist_sample)
             cap = 32 if max_code_len is None else min(max_code_len, 32)
             tree, _limited = build_tree_for_device(bw, max_len=cap)
         sink = _HffSink(dst, tree)
@@ -302,22 +308,27 @@ def read_compress_write(
         encoder = _device_block_encoder(tree, DEVICE_HF2_BLOCK, dev,
                                         _Staging(dev))
 
+        def submit(data: np.ndarray, slot: int):
+            with _stage(timer, "pack", data.size):
+                handle = encoder(data, slot)
+            return handle, time.perf_counter()
+
         def collect(pending) -> None:
             handle, t0 = pending
-            payload, nbits, _, _ = encoder.collect(handle)
+            with _stage(timer, "pack", 0):
+                payload, nbits, _, _ = encoder.collect(handle)
             _record_call(stats, time.perf_counter() - t0)
-            sink.write(payload, nbits)
+            with _stage(timer, "write", (nbits + 7) // 8):
+                sink.write(payload, nbits)
 
-        _pipeline(src, size, step,
-                  lambda data, slot: (encoder(data, slot), time.perf_counter()),
-                  collect)
+        _pipeline(src, size, step, submit, collect)
         sink.finish()
 
 
 def read_decompress_write_hf2(
     src_path: str, dst_path: str, device="cuda",
     chunk_bytes: int | None = None, stats: dict | None = None,
-    check: bool = True,
+    check: bool = True, threads: int | None = None,
 ) -> None:
     """Decode a ``.hf2`` container on ``device``, in groups of about
     ``chunk_bytes`` output bytes; the counterpart of
@@ -325,11 +336,12 @@ def read_decompress_write_hf2(
 
     As in the JAX device route, an empty file, a one-letter tree and
     blocks longer than 2048 bytes go to the host decoder
-    (:func:`read_decompress_write_hf2_host`), which has no per-block
-    serial scan.  Canonical codes, detected from the tree itself and not
-    from the container's flag, decode with :func:`decode_rows`; any other
-    tree with :func:`decode_rows_general`.  ``check`` verifies the CRC32
-    column, raising ``StreamError(kind="CorruptData")`` on a mismatch.
+    (:func:`read_decompress_write_hf2_host`, on ``threads`` threads),
+    which has no per-block serial scan.  Canonical codes, detected from
+    the tree itself and not from the container's flag, decode with
+    :func:`decode_rows`; any other tree with :func:`decode_rows_general`.
+    ``check`` verifies the CRC32 column, raising
+    ``StreamError(kind="CorruptData")`` on a mismatch.
     """
     dev = _resolve(device)
     chunk = chunk_bytes if chunk_bytes is not None else _CHUNK
@@ -341,7 +353,7 @@ def read_decompress_write_hf2(
             _decode_groups(hdr, src, dst, src_path, dev, chunk, stats, check)
             return
     read_decompress_write_hf2_host(src_path, dst_path, chunk_bytes=chunk_bytes,
-                                   check=check)
+                                   check=check, threads=threads)
 
 
 def _decode_groups(hdr, src, dst, src_path: str, dev: torch.device,

@@ -6,7 +6,9 @@ the key a hash of the source, the flags and the host CPU (one flag set is
 ``-march=native``), and loaded with ``ctypes``.  The library the JAX
 package builds and loads (``cpp/libhuffc.so``) is never written or loaded
 here.  If no flag set compiles, every call raises with the compiler's
-error: the host routes have no Python fallback.
+error: the host routes have no Python fallback.  Before the runtime's
+first threads start, glibc's malloc arenas are capped
+(:func:`_bound_arenas`), which bounds the process's address space.
 
 Entry points (the subset of :mod:`tpuhuff.native` the port calls, with the
 same arguments and results):
@@ -18,7 +20,13 @@ same arguments and results):
   independent bit ranges;
 * :func:`decode_resume` — DFA decode of one bit range, resumable at the
   last complete code (the streamed ``.hff`` reader);
-* :func:`crc32_blocks` — per-span zlib CRC32s;
+* :func:`index_blocks` / :func:`spec_index` — the bit offset after every
+  ``block_len``-th letter of a bit range, serially or split across
+  threads by DFA self-synchronization (the ``.hff`` sidecar index);
+* :func:`decode_index` — :func:`decode_resume` and :func:`index_blocks`
+  in one walk;
+* :func:`crc32` / :func:`crc32_blocks` — zlib CRC32 of a buffer, and
+  per-span CRC32s;
 * :func:`extract_rows` — per-block row gather for the device decoders;
 * :func:`stitch_blocks` — bit-carry concatenation of block bitstreams.
 """
@@ -50,6 +58,10 @@ __all__ = [
     "build_dfa",
     "decode_resume",
     "decode_blocks",
+    "decode_index",
+    "index_blocks",
+    "spec_index",
+    "crc32",
     "crc32_blocks",
     "extract_rows",
     "stitch_blocks",
@@ -77,6 +89,8 @@ _u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
 _u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
 _i16p = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
 _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+_U32 = ctypes.c_uint32
 _U64 = ctypes.c_uint64
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int32
@@ -101,6 +115,23 @@ _SIGNATURES = {
     "huffc_decode_blocks": ([_u8p, _u64p, _u64p, _I64, _i16p, _u8p, _u8p,
                              _u8p, _i32p, _i32p, _i32p, _i16p, _i32p, _I32,
                              _u8p, _u64p, _u64p, _u64p, _INT], _I64),
+    # comp, start_bit, end_bit, <dfa tables>, root, out, cap, resume,
+    # block_len, bounds, bounds_cap, in_block, n_bounds
+    "huffc_decode_index": ([_u8p, _U64, _U64, _i16p, _u8p, _u8p, _u8p, _i32p,
+                            _i32p, _i32p, _i16p, _i32p, _I32, _u8p, _U64,
+                            _u64p, _U64, _u64p, _I64, _u64p, _i64p], _I64),
+    # comp, start_bit, end_bit, next, count, last_bit, left, right,
+    # state_of_node, node_of_state, root, block_len, bounds, bounds_cap,
+    # in_block, resume
+    "huffc_index_blocks": ([_u8p, _U64, _U64, _i16p, _u8p, _u8p, _i32p, _i32p,
+                            _i16p, _i32p, _I32, _U64, _u64p, _I64, _u64p,
+                            _u64p], _I64),
+    # ... the same, then threads
+    "huffc_spec_index": ([_u8p, _U64, _U64, _i16p, _u8p, _u8p, _i32p, _i32p,
+                          _i16p, _i32p, _I32, _U64, _u64p, _I64, _u64p, _u64p,
+                          _INT], _I64),
+    # data, n, seed
+    "huffc_crc32": ([_u8p, _U64, _U32], _U32),
     # data, n, span, out, threads
     "huffc_crc32_blocks": ([_u8p, _U64, _U64, _u32p, _INT], None),
     # words, n_words, starts, nb, row_words, out, threads
@@ -112,8 +143,32 @@ _SIGNATURES = {
 }
 
 
+# glibc's mallopt parameter, and the bound put on it: each of the
+# runtime's os.cpu_count() threads would otherwise get a malloc arena of
+# its own, and each arena reserves 64 MiB of address space
+_M_ARENA_MAX = -8
+_ARENA_MAX = 2
+
+
 def num_threads() -> int:
     return max(1, os.cpu_count() or 1)
+
+
+def _bound_arenas() -> None:
+    """Cap glibc's malloc arenas at ``_ARENA_MAX`` (2) before the runtime
+    starts its first threads, so that the process's address space stays
+    bounded (a 1.5 GiB round trip fits under a 1 GiB ``RLIMIT_AS``).  A
+    ``MALLOC_ARENA_MAX`` in the environment is left to rule; a C library
+    without ``mallopt`` is left as it is."""
+    if os.environ.get("MALLOC_ARENA_MAX"):
+        return
+    try:
+        mallopt = ctypes.CDLL(None).mallopt
+    except (OSError, AttributeError):
+        return
+    mallopt.argtypes = [ctypes.c_int, ctypes.c_int]
+    mallopt.restype = ctypes.c_int
+    mallopt(_M_ARENA_MAX, _ARENA_MAX)
 
 
 def _cpu_id() -> bytes:
@@ -179,6 +234,7 @@ def lib() -> ctypes.CDLL:
                 target = os.path.join(_BUILD, f"libhuffc_{_key(fp.read())}.so")
             if not os.path.exists(target):
                 _build(target)
+            _bound_arenas()
             handle = ctypes.CDLL(target)
             for name, (argtypes, restype) in _SIGNATURES.items():
                 fn = getattr(handle, name)
@@ -324,6 +380,95 @@ def decode_blocks(
     if r != 0:
         raise RuntimeError(f"huffc_decode_blocks failed on block {-r - 1}")
     return out, out_lens
+
+
+def decode_index(
+    comp: np.ndarray, start_bit: int, end_bit: int, tables: DfaTables,
+    out_cap: int, block_len: int, in_block: int = 0,
+) -> Tuple[bytes, np.ndarray, int, int]:
+    """:func:`decode_resume` and :func:`index_blocks` in one DFA walk.
+    Returns ``(letters, boundaries, resume_bit, in_block)``, resumable
+    across windows like :func:`decode_resume`."""
+    comp = np.ascontiguousarray(comp, dtype=np.uint8)
+    out = np.empty(out_cap, dtype=np.uint8)
+    cap_b = int(end_bit - start_bit) // max(int(block_len), 1) + 2
+    bounds = np.zeros(cap_b, dtype=np.uint64)
+    state = np.asarray([in_block], dtype=np.uint64)
+    resume = np.zeros(1, dtype=np.uint64)
+    nb = np.zeros(1, dtype=np.int64)
+    r = int(lib().huffc_decode_index(
+        comp, start_bit, end_bit, tables.next_state.reshape(-1),
+        tables.emit_count.reshape(-1), tables.emit_syms.reshape(-1),
+        tables.last_emit_bit.reshape(-1), tables.left, tables.right,
+        tables.letter, tables.state_of_node, tables.node_of_state, tables.root,
+        out, out_cap, resume, block_len, bounds, cap_b, state, nb))
+    if r < 0:
+        raise RuntimeError(f"huffc_decode_index failed: {r}")
+    return (out[:r].tobytes(), bounds[: int(nb[0])].copy(), int(resume[0]),
+            int(state[0]))
+
+
+def _index_args(comp, start_bit, end_bit, tables, block_len, in_block):
+    """The arguments :func:`index_blocks` and :func:`spec_index` share, and
+    their boundary, state and resume buffers."""
+    comp = np.ascontiguousarray(comp, dtype=np.uint8)
+    # every letter is >= 1 bit, so at most (bits // block_len) + 1 boundaries
+    cap = int(end_bit - start_bit) // max(int(block_len), 1) + 2
+    bounds = np.zeros(cap, dtype=np.uint64)
+    state = np.asarray([in_block], dtype=np.uint64)
+    resume = np.zeros(1, dtype=np.uint64)
+    args = (comp, start_bit, end_bit, tables.next_state.reshape(-1),
+            tables.emit_count.reshape(-1), tables.last_emit_bit.reshape(-1),
+            tables.left, tables.right, tables.state_of_node,
+            tables.node_of_state, tables.root, block_len, bounds, cap, state,
+            resume)
+    return args, bounds, state, resume
+
+
+def index_blocks(
+    comp: np.ndarray, start_bit: int, end_bit: int, tables: DfaTables,
+    block_len: int, in_block: int = 0,
+) -> Tuple[np.ndarray, int, int]:
+    """Walk a bit range without emitting; returns ``(boundaries, resume_bit,
+    in_block)``, ``boundaries`` the bit offset after every
+    ``block_len``-th letter.  Resumable across windows like
+    :func:`decode_resume` (fed again from ``resume_bit`` with the returned
+    ``in_block``)."""
+    args, bounds, state, resume = _index_args(comp, start_bit, end_bit,
+                                              tables, block_len, in_block)
+    nb = int(lib().huffc_index_blocks(*args))
+    if nb < 0:
+        raise RuntimeError("huffc_index_blocks: boundary buffer overflow")
+    return bounds[:nb].copy(), int(resume[0]), int(state[0])
+
+
+def spec_index(
+    comp: np.ndarray, start_bit: int, end_bit: int, tables: DfaTables,
+    block_len: int, in_block: int = 0, threads: int | None = None,
+) -> Tuple[np.ndarray, int, int]:
+    """:func:`index_blocks` split across threads: each parses a
+    byte-aligned chunk from the root state and a serial pass over the
+    seams splices the true parse together (a seam that does not coalesce
+    walks its chunk again serially).  A one-leaf tree or a range too small
+    to split goes to :func:`index_blocks`."""
+    args, bounds, state, resume = _index_args(comp, start_bit, end_bit,
+                                              tables, block_len, in_block)
+    nb = int(lib().huffc_spec_index(*args, threads or num_threads()))
+    if nb == -3:
+        return index_blocks(comp, start_bit, end_bit, tables, block_len,
+                            in_block)
+    if nb < 0:
+        raise RuntimeError(f"huffc_spec_index failed: {nb}")
+    return bounds[:nb].copy(), int(resume[0]), int(state[0])
+
+
+def crc32(data, seed: int = 0) -> int:
+    """zlib's CRC32 of ``data`` (bytes-like or uint8 array), chained from
+    ``seed``."""
+    if isinstance(data, (bytes, bytearray, memoryview)):
+        data = np.frombuffer(data, dtype=np.uint8)
+    data = np.ascontiguousarray(data, dtype=np.uint8).reshape(-1)
+    return int(lib().huffc_crc32(data, data.size, seed & 0xFFFFFFFF))
 
 
 def crc32_blocks(data: np.ndarray, span: int,
