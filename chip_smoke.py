@@ -28,7 +28,10 @@ Phases (any failure exits non-zero and prints no result line):
    (32-bit codes) and blocks cut short; K2 and K4 on rows of random words
    that are not codes, and on host-written ``.hf2`` payloads at
    ``block_len`` 1000 and 2048; K4 on a tree of two leaves (one-bit
-   codes), either way round; histograms (K3) from 1 B to 100 MiB.  The
+   codes), either way round; K2 and K4 on rows of 60,000 random words,
+   too wide for shared memory (their global-rows route), and on 16 blocks
+   of 65536 codes of 25-32 bits (the shape of a phase-7b launch on that
+   route, timed there); histograms (K3) from 1 B to 100 MiB.  The
    decoders' first-level table size k, rows per thread block n and the
    share of the main input's symbols that escape the table; kernel, plain
    and library-call times at the main path's shapes, and K1 and K5 at
@@ -65,7 +68,29 @@ Phases (any failure exits non-zero and prints no result line):
    decoded with ``-d --hf2 --device`` (K4, no K2); ``--dataset --adaptive
    --device`` on three 8 MiB shards (K5), each shard decoded back;
    ``--warmup``; and ``--profile DIR``, whose trace must hold a CUDA kernel
-   event of a port kernel.
+   event of a port kernel;
+7. the last modules (each run counted from 0 as in phase 4): (a) config 3,
+   a 1 GiB mixed binary corpus (a third textlike, a third uniform random,
+   a third geometric), through ``dist.compress_sharded`` at 64 KiB blocks
+   on ``make_mesh()`` (the card) and on ``[cuda:0] * 4``: each container
+   equal to the host codec's (``tpuhuff_torch.compress``), each
+   ``decompress`` exact, K3 and K1 once per shard, walls and rates beside
+   the host codec's; (b) ``dist.sharded_decode_blocks`` on the 4-entry
+   mesh: the corpus's stream cut into blocks of 4096 and 65536 bytes under
+   its own (non-canonical) tree, K4 alone, and under the canonical tree,
+   K2 alone, all exact (the corpus's codes stop at about 10 bits: one
+   tree over a uniform random third has none past 14); then 64 blocks of
+   65536 codes of 15-24 bits each way (rows staged in shared memory, every
+   code past the first-level table) and 64 of 25-32 bits, whose rows are
+   too wide for shared memory (the global-rows route of K2 and K4), exact,
+   and ``decode_tile_rows`` at 4096 and 65536 bytes for 8-, 14- and 32-bit
+   codes; (c) config 5 on one card: two processes in a gloo group, both on
+   cuda:0, each with a timeout, run ``dist.multihost.compress_file_multihost``
+   (64 MiB super-chunks) and ``decompress_file_multihost`` on 256 MiB +
+   12,345 B of textlike data at ``block_len`` 65536 (decoded on the host)
+   and 1024 (K2 in each process); every ``.hf2`` SHA-equal to the
+   single-process device writer's, every round trip exact, each child's
+   launch counts printed on a line of its own.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of JAX, and nothing of the JAX
@@ -88,6 +113,8 @@ RANDOM_MB = 16
 SHARD_MB = 100         # config 4: 10 GB of shards cut to 6 x 100 MiB
 N_SHARDS = 6
 LANE = 256             # the device writer's default block_len
+CONFIG3_MB = 1024      # config 3: a 1 GB mixed binary corpus
+MULTI_MB = 256         # config 5 on one card: the file of two processes
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM: 3.35 TB/s (NVIDIA's data sheet)
 
 
@@ -369,6 +396,323 @@ def phase6_cli(work: str, dev, card: str, reset, read, np) -> None:
     shutil.rmtree(d)
 
 
+def make_config3(n: int, np, seed: int = 3):
+    """Config 3's mixed binary corpus from the seed: a third textlike, a
+    third uniform random bytes and a third drawn from a geometric law
+    (most bytes small, a long tail of rare ones), made in 64 MiB pieces."""
+    rng = np.random.default_rng(seed)
+    third = n // 3
+    out = np.empty(n, dtype=np.uint8)
+    out[:third] = make_textlike(third, np, seed=seed)
+    out[third: 2 * third] = rng.integers(0, 256, third, dtype=np.uint8)
+    # the geometric law by its inverse CDF at 16-bit resolution, so the
+    # draws stay 16-bit: P(byte >= k) = 0.98^k, capped at 255
+    u = (np.arange(1 << 16) + 0.5) / (1 << 16)
+    lut = np.minimum(np.floor(np.log1p(-u) / np.log1p(-0.02)), 255
+                     ).astype(np.uint8)
+    for lo in range(2 * third, n, 64 << 20):
+        hi = min(lo + (64 << 20), n)
+        out[lo:hi] = lut[rng.integers(0, 1 << 16, hi - lo, dtype=np.uint16)]
+    return out
+
+
+def wide_code_blocks(np, n_blocks: int, block_len: int = 65536,
+                     lengths=(25, 32)) -> dict:
+    """Blocks of ``block_len`` letters drawn from the letters of the
+    Fibonacci weights' 32-bit tree whose codes are ``lengths[0]`` to
+    ``lengths[1]`` bits long: at 25 to 32 bits, rows of ~59,000 words, too
+    wide for shared memory; at 15 to 24, rows of ~40,000 words, staged
+    there, every code past the first-level table.  ``{"decode": case,
+    "decode_general": case}``, case ``(tree, data, rows, bit0, bits)``
+    under the canonical tree (K2) and under its mirror (K4)."""
+    import tpuhuff_torch
+    from tpuhuff_torch.core.canonical import build_tree_for_device, canonicalize
+    from tpuhuff_torch.core.tree import HuffTree
+    from tpuhuff_torch.core.weights import ByteWeights
+    from tpuhuff_torch.kernels import payload_to_lane_words
+
+    fib = [1, 1]
+    while len(fib) < 34:
+        fib.append(fib[-1] + fib[-2])
+    counts = np.zeros(256, dtype=np.int64)
+    counts[:34] = fib
+    tree = canonicalize(build_tree_for_device(ByteWeights(counts), 32)[0])
+    lens = tree.encode_tables()[0]
+    rare = np.flatnonzero((lens >= lengths[0]) & (lens <= lengths[1])
+                          ).astype(np.uint8)
+    data = rare[np.random.default_rng(8).integers(0, rare.size,
+                                                  n_blocks * block_len)]
+    cases = {}
+    for key, t in (("decode", tree),
+                   ("decode_general", HuffTree(tree.right, tree.left,
+                                               tree.letters, tree.weights,
+                                               tree.root))):
+        payload = tpuhuff_torch.compress_with_tree(data, t).comp_bytes
+        bits = t.encode_tables()[0][data].reshape(n_blocks, block_len).sum(
+            axis=1, dtype=np.int64)
+        ends = np.cumsum(bits)
+        rows, bit0 = payload_to_lane_words(payload, ends - bits, ends, block_len)
+        cases[key] = (t, data, rows, bit0, bits.astype(np.int32))
+    return cases
+
+
+def phase7_mesh(dev, card: str, reset, read, np, torch) -> dict:
+    """Phases 7a and 7b: config 3 on a mesh of the card, and the sharded
+    decoders.  Returns the global-rows routes' launches of 7b."""
+    import tpuhuff_torch
+    from tpuhuff_torch.dist import compress_sharded, make_mesh, sharded_decode_blocks
+    from tpuhuff_torch.core.canonical import canonicalize
+    from tpuhuff_torch.kernels import (
+        decode_rows,
+        decode_rows_general,
+        decode_tile_rows,
+        decoder_for,
+        make_canonical_decode_tables,
+        payload_to_lane_words,
+    )
+
+    n = CONFIG3_MB << 20
+    t0 = time.perf_counter()
+    data = make_config3(n, np)
+    log(f"phase 7a: config 3 corpus, {n} B made in "
+        f"{time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    host = tpuhuff_torch.compress(data)
+    host_s = time.perf_counter() - t0
+    want = host.to_bytes()
+    tree = host.huff_tree
+    log(f"phase 7a: host codec tpuhuff_torch.compress: {host_s:.4f} s wall, "
+        f"{n / host_s / 1e9:.4f} GB/s, {n} B -> {len(want)} B, max code "
+        f"{tree.max_code_len()} bits [{card}]")
+    meshes = {"make_mesh() (the card)": make_mesh(),
+              "[cuda:0] * 4": make_mesh([dev] * 4)}
+    for name, mesh in meshes.items():
+        reset()
+        t0 = time.perf_counter()
+        got = compress_sharded(data, block_len=65536, mesh=mesh)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read()
+        if got.to_bytes() != want:
+            fail(f"7a {name}: compress_sharded differs from the host codec")
+        if counts["histogram"] != len(mesh) or counts["encode"] != len(mesh):
+            fail(f"7a {name}: K3/K1 not once per shard: {counts}")
+        t0 = time.perf_counter()
+        back = tpuhuff_torch.decompress(got)
+        back_s = time.perf_counter() - t0
+        if not np.array_equal(np.frombuffer(back, np.uint8), data):
+            fail(f"7a {name}: decompress does not restore the corpus")
+        del back
+        log(f"phase 7a: compress_sharded on {name}: {dt:.4f} s wall, "
+            f"{n / dt / 1e9:.4f} GB/s (host codec {n / host_s / 1e9:.4f}), "
+            f"to_bytes() == the host codec's, decompress exact "
+            f"({back_s:.4f} s), launches {counts} [{card}]")
+    del got
+
+    # 7b: the corpus's stream decoded by blocks on the 4-entry mesh: cut at
+    # 4096 and 65536 bytes (a block's bits are its letters' code lengths)
+    mesh = meshes["[cuda:0] * 4"]
+
+    per_letter = tree.encode_tables()[0][data]  # the same for the mirror
+    block_bits = {L: per_letter.reshape(-1, L).sum(axis=1, dtype=np.int64)
+                  for L in (4096, 65536)}  # n is a multiple of both
+    del per_letter
+
+    def decode_check(label, payload, block_len, tree, want_fn):
+        bits = block_bits[block_len]
+        B4 = bits.size  # a multiple of the mesh's 4 entries
+        ends = np.cumsum(bits)
+        starts = ends - bits
+        rows, bit0 = payload_to_lane_words(payload, starts, ends, block_len)
+        wrapper = decoder_for(tree)[0]
+        if wrapper is not want_fn:
+            fail(f"7b {label}: decoder_for picked {wrapper.__name__}")
+        tile = decode_tile_rows(B4 // len(mesh), rows.shape[1], block_len,
+                                wrapper is decode_rows_general, dev)
+        reset()
+        t0 = time.perf_counter()
+        out = sharded_decode_blocks(rows, bit0, bits.astype(np.int32), tree,
+                                    block_len, mesh)
+        dt = time.perf_counter() - t0
+        counts = read()
+        if not np.array_equal(out.reshape(-1)[:n], data):
+            fail(f"7b {label}: the decode is not exact")
+        other = "decode" if want_fn is decode_rows_general else "decode_general"
+        mine = "decode_general" if want_fn is decode_rows_general else "decode"
+        if counts[mine] != len(mesh) or counts[other]:
+            fail(f"7b {label}: wrong launches {counts}")
+        log(f"phase 7b: {label} at block_len {block_len}: {B4} blocks of "
+            f"{rows.shape[1]} words, {tile} blocks per thread block "
+            f"(0: rows from device memory), exact, {dt:.4f} s wall, launches "
+            f"{counts} [{card}]")
+
+    if make_canonical_decode_tables(tree) is not None:
+        fail("7b: the host codec's tree of the corpus is canonical")
+    ctree = canonicalize(tree)
+    cpayload = tpuhuff_torch.compress_with_tree(data, ctree).comp_bytes
+    for block_len in (4096, 65536):
+        decode_check("K4, the stream of 7a (its own tree, not canonical)",
+                     host.comp_bytes, block_len, tree, decode_rows_general)
+        decode_check("K2, the corpus under the canonical tree", cpayload,
+                     block_len, ctree, decode_rows)
+    del host, want, cpayload, data
+
+    # 7b (iii): blocks of 65536 codes of 15 to 24 bits (the corpus's tree
+    # has none past 14): rows staged in shared memory, every code escaping
+    # the first-level table
+    for key, (t, long_, rows, bit0, bits) in wide_code_blocks(
+            np, 64, lengths=(15, 24)).items():
+        glob = f"{key}_global_rows"
+        tile = decode_tile_rows(rows.shape[0] // len(mesh), rows.shape[1],
+                                65536, key == "decode_general", dev)
+        reset()
+        t0 = time.perf_counter()
+        got = sharded_decode_blocks(rows, bit0, bits, t, 65536, mesh)
+        dt = time.perf_counter() - t0
+        c = read()
+        if not np.array_equal(got.reshape(-1), long_):
+            fail(f"7b {key} on 15-24-bit codes: the decode is not exact")
+        if tile == 0 or c[glob] or c[key] != len(mesh):
+            fail(f"7b {key} on 15-24-bit codes: not the staged route "
+                 f"({tile} blocks per thread block): {c}")
+        log(f"phase 7b: {key}: {rows.shape[0]} blocks of 65536 codes of "
+            f"15-24 bits, rows of {rows.shape[1]} words, {tile} blocks per "
+            f"thread block (staged), exact, {dt:.4f} s wall, launches {c} "
+            f"[{card}]")
+
+    # 7b (iv): blocks of 65536 codes of 25 to 32 bits: rows too wide for
+    # shared memory take the decoders' global-rows route
+    launches = {}
+    for key, (t, wide, rows, bit0, bits) in wide_code_blocks(np, 64).items():
+        glob = f"{key}_global_rows"
+        reset()
+        got = sharded_decode_blocks(rows, bit0, bits, t, 65536, mesh)
+        c = read()
+        if not np.array_equal(got.reshape(-1), wide):
+            fail(f"7b {glob}: the decode is not exact")
+        if c[glob] != len(mesh) or c[key] != len(mesh):
+            fail(f"7b {glob}: the global-rows route did not launch: {c}")
+        launches[glob] = c[glob]
+        log(f"phase 7b: {glob}: {rows.shape[0]} blocks of 65536 codes of "
+            f"25-32 bits, rows of {rows.shape[1]} words, exact, launches {c} "
+            f"[{card}]")
+    for L in (4096, 65536):
+        for c_bits in (8, 14, 32):
+            W = -(-L * c_bits // 32) + 2
+            log(f"phase 7b: decode_tile_rows at block_len {L}, {c_bits}-bit "
+                f"codes (W {W}): K2 {decode_tile_rows(1 << 14, W, L, False, dev)}"
+                f", K4 {decode_tile_rows(1 << 14, W, L, True, dev)} (0: rows "
+                "from device memory)")
+    return launches
+
+
+_CHILD = r"""
+import json, os, sys, time
+sys.path.insert(0, os.environ["TPUHUFF_REPO"])
+import torch
+from tpuhuff_torch.dist import multihost as mh
+from tpuhuff_torch.kernels import (decode_rows, decode_rows_general,
+                                   encode_blocks, histogram)
+mh.initialize()
+rank = torch.distributed.get_rank()
+fns = {"encode": (encode_blocks, "launches"), "decode": (decode_rows, "launches"),
+       "decode_general": (decode_rows_general, "launches"),
+       "histogram": (histogram, "launches")}
+def counted(fn, *args, **kw):
+    for f, a in fns.values():
+        setattr(f, a, 0)
+    t0 = time.perf_counter()
+    fn(*args, **kw)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, {k: getattr(f, a) for k, (f, a) in fns.items()}
+src = os.environ["SRC"]
+for bl in (65536, 1024):
+    dst = f"{src}.{bl}.mh.hf2"
+    cs, cc = counted(mh.compress_file_multihost, src, dst, block_len=bl,
+                     chunk_bytes=64 << 20)
+    ds, dc = counted(mh.decompress_file_multihost, dst, f"{dst}.rt")
+    print("CHILD " + json.dumps({"rank": rank, "block_len": bl,
+          "device": str(torch.cuda.current_device()),
+          "compress_s": cs, "compress": cc, "decompress_s": ds,
+          "decompress": dc}), flush=True)
+"""
+
+
+def phase7_multiprocess(work: str, dev, card: str, np) -> None:
+    """Phase 7c: config 5 on one card, two processes in a gloo group, each
+    launching its own kernels on cuda:0."""
+    import socket
+
+    from tpuhuff_torch.io import read_compress_write_hf2
+
+    n = (MULTI_MB << 20) + 12345  # not a multiple of block_len * 2
+    src = os.path.join(work, "multi.bin")
+    make_textlike(n, np, seed=77).tofile(src)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = dict(os.environ, TPUHUFF_REPO=os.path.dirname(os.path.abspath(__file__)),
+               TPUHUFF_COORDINATOR=f"127.0.0.1:{port}",
+               TPUHUFF_NUM_PROCESSES="2", SRC=src)
+    env.pop("PYTHONPATH", None)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", _CHILD],
+                              env=dict(env, TPUHUFF_PROCESS_ID=str(k)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for k in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    except subprocess.TimeoutExpired:
+        fail("7c: a child process timed out")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    reports = []
+    for k, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"7c: child {k} exited {p.returncode}:\n{out[-3000:]}")
+        for line in out.splitlines():
+            if line.startswith("CHILD "):
+                log(f"phase 7c: child {k}: {line[6:]} [{card}]")
+                reports.append(json.loads(line[6:]))
+    if len(reports) != 4:
+        fail(f"7c: expected 4 child reports, got {len(reports)}")
+    for bl in (65536, 1024):
+        dst = f"{src}.{bl}.mh.hf2"
+        ref = f"{src}.{bl}.ref.hf2"
+        t0 = time.perf_counter()
+        read_compress_write_hf2(src, ref, block_len=bl, device=dev)
+        ref_s = time.perf_counter() - t0
+        if sha(dst) != sha(ref):
+            fail(f"7c: the two processes' .hf2 at block_len {bl} differs from "
+                 "the single-process device writer's")
+        if not same_file(f"{dst}.rt", src):
+            fail(f"7c: the two processes' decode at block_len {bl} is not exact")
+        for r in (x for x in reports if x["block_len"] == bl):
+            if not r["compress"]["encode"]:
+                fail(f"7c: child {r['rank']} never launched K1: {r}")
+            k2, k4 = r["decompress"]["decode"], r["decompress"]["decode_general"]
+            if bl > 2048 and (k2 or k4):
+                fail(f"7c: block_len {bl} must decode on the host: {r}")
+            if bl <= 2048 and not k2:
+                fail(f"7c: child {r['rank']} did not decode with K2: {r}")
+        comp = max(x["compress_s"] for x in reports if x["block_len"] == bl)
+        dec = max(x["decompress_s"] for x in reports if x["block_len"] == bl)
+        log(f"phase 7c: block_len {bl}: .hf2 sha256 {sha(dst)[:16]} == the "
+            f"single-process device writer's, round trip exact; two processes "
+            f"compress {comp:.4f} s ({n / comp / 1e9:.4f} GB/s), decompress "
+            f"{dec:.4f} s ({n / dec / 1e9:.4f} GB/s; "
+            f"{'host route' if bl > 2048 else 'K2'}); one process "
+            f"{ref_s:.4f} s ({n / ref_s / 1e9:.4f} GB/s) [{card}]")
+    log(f"phase 7c: the children's wall, start to exit: {wall:.4f} s")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -496,7 +840,8 @@ def main() -> None:
     }
     rng_k5 = np.random.default_rng(5)  # the earlier phases keep their inputs
     errs = {"encode": 0, "encode_hist": 0, "decode": 0, "decode_general": 0,
-            "histogram": 0}
+            "histogram": 0, "decode_global_rows": 0,
+            "decode_general_global_rows": 0}
 
     def poison(lanes, etab):
         """Fill the allocator's blocks of the words' size with 0xFF and free
@@ -695,6 +1040,26 @@ def main() -> None:
         err = max_err(torch, out, plain)
         errs[key] = max(errs[key], err)
         log(f"phase 3: {key} on {B} rows of random words: err {err}")
+    # rows too wide for shared memory: the decoders' global-rows route
+    B, W = 64, 60_000
+    rows = torch.from_numpy(rng.integers(0, 1 << 32, (B, W), dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32)).to(dev)
+    bit0 = torch.from_numpy(rng.integers(0, 32 * W, B).astype(np.int32)).to(dev)
+    nbits = torch.from_numpy(rng.integers(0, 32 * W, B).astype(np.int32)).to(dev)
+    for key, tab in (("decode", dtab_text), ("decode_general", gtab_text)):
+        decode, plain_fn = decoders[key]
+        if decode_tile_rows(B, W, 300, key == "decode_general", dev) != 0:
+            fail(f"{key}: rows of {W} words fit in shared memory")
+        before = decode.global_launches
+        out = decode(rows, bit0, nbits, tab, 300)
+        plain = plain_fn(rows, bit0, nbits, tab, 300)
+        torch.cuda.synchronize()
+        if decode.global_launches != before + 1:
+            fail(f"{key}: rows of {W} words did not take the global-rows route")
+        err = max_err(torch, out, plain)
+        errs[f"{key}_global_rows"] = err
+        log(f"phase 3: {key} on {B} rows of {W} random words (global-rows "
+            f"route), block_len 300: err {err}")
 
     # host-written .hf2 payloads at block_len 1000 and 2048, gathered into
     # rows as the file path does: K2 on the canonical tree, K4 on the
@@ -895,6 +1260,40 @@ def main() -> None:
         ms = cuda_ms(torch, lambda: fn(w, s["bit0"], nb, tab, LANE))
         log(f"phase 3: {k} on rows of K1's full width ({w.shape[1]} words, "
             f"not {s['rows'].shape[1]}): kernel {ms:.4f} ms [{card}]")
+    # the global-rows route at the shape phase 7b gives one launch: a shard
+    # of 16 blocks of 65536 codes of 25-32 bits.  The plain version takes
+    # tens of seconds here: one call, timed with events, which also gives
+    # the error at this shape
+    global_timing = {}
+    for key, (t, _, rows_np, bit0_np, bits_np) in wide_code_blocks(np, 16).items():
+        decode, plain_fn = decoders[key]
+        tab = decoder_for(t)[1].to(dev)
+        r = torch.from_numpy(rows_np.view(np.int32)).to(dev)
+        b0 = torch.from_numpy(bit0_np).to(dev)
+        nb = torch.from_numpy(bits_np).to(dev)
+        ms = cuda_ms(torch, lambda: decode(r, b0, nb, tab, 65536))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain_fn(r, b0, nb, tab, 65536)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        err = max_err(torch, decode(r, b0, nb, tab, 65536), want)
+        glob = f"{key}_global_rows"
+        errs[glob] = max(errs[glob], err)
+        tables = ((tab.ub, tab.dd, tab.perm) if key == "decode"
+                  else (tab.thr, tab.sym, tab.len))
+        moved = (payload_bytes(b0, nb) + 8 * r.shape[0] + nbytes(*tables)
+                 + r.shape[0] * 65536)
+        global_timing[glob] = (ms, plain_ms, moved / HBM_BYTES_PER_MS)
+        log(f"phase 3: {glob} at the shape of a phase-7b launch ({r.shape[0]} "
+            f"blocks of 65536 codes of 25-32 bits, rows of {r.shape[1]} "
+            f"words): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{moved / HBM_BYTES_PER_MS:.4f} ms ({moved} B at 3.35 TB/s), err "
+            f"{err} [{card}]")
+    if any(errs.values()):
+        fail(f"kernels disagree with their plain versions: {errs}")
     del s, lanes, valid, words, rows, grows, gwords, wide, text_dev, hist_chunk
     torch.cuda.synchronize()
 
@@ -903,7 +1302,10 @@ def main() -> None:
                 "encode_hist": (encode_blocks, "hist_launches"),
                 "decode": (decode_rows, "launches"),
                 "decode_general": (decode_rows_general, "launches"),
-                "histogram": (histogram, "launches")}
+                "histogram": (histogram, "launches"),
+                "decode_global_rows": (decode_rows, "global_launches"),
+                "decode_general_global_rows": (decode_rows_general,
+                                               "global_launches")}
 
     def reset():
         for fn, attr in counters.values():
@@ -1147,6 +1549,12 @@ def main() -> None:
         # -- phase 6: the command line ---------------------------------------
         shutil.rmtree(out_dir)
         phase6_cli(work, dev, card, reset, read, np)
+
+        # -- phase 7: config 3 on a mesh, the sharded decoders, config 5 -----
+        t7 = time.perf_counter()
+        routes = phase7_mesh(dev, card, reset, read, np, torch)
+        phase7_multiprocess(work, dev, card, np)
+        log(f"phase 7: {time.perf_counter() - t7:.3f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1176,6 +1584,18 @@ def main() -> None:
                 "bound_ms": bound[k], "bound_by": "bytes",
                 "library_ms": timing[k][2]}
                for k, (src, rep) in sources.items()]
+    # the decoders' route for rows too wide for shared memory (phase 7b's
+    # blocks of 65536 long codes); its launches are also in K2's and K4's
+    for k in ("decode", "decode_general"):
+        glob = f"{k}_global_rows"
+        ms, plain_ms, bound_ms = global_timing[glob]
+        kernels.append({
+            "name": glob, "route": "cuda",
+            "source": f"{sources[k][0]} + tpuhuff_torch/csrc/decode_common.cuh"
+                      " (kGlobalRows)",
+            "replaces": sources[k][1], "launches": routes[glob],
+            "max_abs_err": errs[glob], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -145,11 +145,11 @@ def main() -> None:
         if name == "K2":
             err = lib.tpuhuff_decode_rows(
                 *head, tab.ub.data_ptr(), tab.dd.data_ptr(),
-                tab.perm.data_ptr(), *tail, tab.max_len, stream)
+                tab.perm.data_ptr(), *tail, tab.max_len, None, stream)
         else:
             err = lib.tpuhuff_decode_rows_general(
                 *head, tab.thr.data_ptr(), tab.sym.data_ptr(),
-                tab.len.data_ptr(), *tail, stream)
+                tab.len.data_ptr(), *tail, None, stream)
         if err:
             raise RuntimeError(f"{name} at k {k}: CUDA error {err}")
         return out

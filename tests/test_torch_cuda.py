@@ -251,3 +251,104 @@ def test_decode_general_two_leaf_tree(dev, letters, mirrored, block_len):
         assert torch.equal(got, want)
         if not cut:
             assert torch.equal(got.cpu(), torch.from_numpy(data))
+
+
+def _rows_of(payload, bit_lens, block_len):
+    ends = np.cumsum(bit_lens.astype(np.int64))
+    starts = ends - bit_lens.astype(np.int64)
+    rows, bit0 = payload_to_lane_words(payload, starts, ends, block_len)
+    return rows, bit0, (ends - starts).astype(np.int32)
+
+
+@pytest.mark.parametrize("decoder", ["K2", "K4"])
+def test_decode_global_rows_route_matches_plain(dev, decoder):
+    """Rows too wide for shared memory (60,000 words of random bits) take
+    the decoders' global-rows route: bit-exact against the plain version,
+    counted in ``global_launches``."""
+    from tpuhuff_torch.kernels import decode_tile_rows
+
+    rng = np.random.default_rng(60_000 + len(decoder))
+    B, W, block_len = 40, 60_000, 300
+    assert decode_tile_rows(B, W, block_len, decoder == "K4", dev) == 0
+    tree = _fib_tree()
+    if decoder == "K2":
+        wrapper, plain = decode_rows, decode_rows_reference
+        tables = make_canonical_decode_tables(tree).to(dev)
+    else:
+        tree = HuffTree(tree.right, tree.left, tree.letters, tree.weights,
+                        tree.root)
+        wrapper, plain = decode_rows_general, decode_rows_general_reference
+        tables = make_decode_tables(tree).to(dev)
+    rows = torch.from_numpy(rng.integers(0, 1 << 32, (B, W), dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32)).to(dev)
+    bit0 = torch.from_numpy(rng.integers(0, 32 * W, B).astype(np.int32)).to(dev)
+    nbits = torch.from_numpy(rng.integers(0, 32 * W, B).astype(np.int32)).to(dev)
+    before = wrapper.launches, wrapper.global_launches
+    got = wrapper(rows, bit0, nbits, tables, block_len)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.global_launches) == (before[0] + 1,
+                                                           before[1] + 1)
+    assert torch.equal(got, plain(rows, bit0, nbits, tables, block_len))
+
+
+@pytest.mark.parametrize("codes", ["textlike", "32-bit"])
+@pytest.mark.parametrize("canonical", [True, False])
+def test_sharded_decode_blocks_at_64_kib(dev, codes, canonical):
+    """``sharded_decode_blocks`` at 65536-byte blocks on ``[cuda] * 2``:
+    K2 (canonical) or K4 alone, exact.  Blocks of the Fibonacci tree's
+    rarest letters (codes of 25 to 32 bits) are rows too wide for shared
+    memory: the global-rows route."""
+    from tpuhuff_torch.dist import make_mesh, sharded_decode_blocks
+
+    rng = np.random.default_rng(len(codes) + canonical)
+    block_len, B = 65536, 4
+    if codes == "32-bit":
+        tree = _fib_tree()
+        lens = tree.encode_tables()[0]
+        rare = np.flatnonzero(lens >= 25).astype(np.uint8)
+        data = rare[rng.integers(0, rare.size, B * block_len)]
+    else:
+        data = (rng.zipf(1.3, B * block_len) % 90).astype(np.uint8)
+        tree = _tree(data)
+    if not canonical:
+        tree = HuffTree(tree.right, tree.left, tree.letters, tree.weights,
+                        tree.root)
+    payload, _, bit_lens = native.encode_blocks_host(data, block_len,
+                                                     *tree.encode_tables())
+    rows, bit0, nbits = _rows_of(payload, bit_lens, block_len)
+    wrapper = decode_rows if canonical else decode_rows_general
+    other = decode_rows_general if canonical else decode_rows
+    before = (wrapper.launches, wrapper.global_launches, other.launches)
+    out = sharded_decode_blocks(rows, bit0, nbits, tree, block_len,
+                                make_mesh([dev] * 2))
+    torch.cuda.synchronize()
+    assert np.array_equal(out.reshape(-1), data)
+    wide = codes == "32-bit"
+    assert (wrapper.launches - before[0], wrapper.global_launches - before[1],
+            other.launches - before[2]) == (2, 2 if wide else 0, 0)
+
+
+def test_compress_sharded_on_four_entries_of_one_card(dev):
+    """Config 3's shape on one card: the same container as the host codec,
+    K3 and K1 once per shard, and the dry run on four entries."""
+    import tpuhuff_torch
+    from tpuhuff_torch.dist import compress_sharded, make_mesh
+    from tpuhuff_torch.dist.dryrun import dryrun_multichip
+
+    rng = np.random.default_rng(3)
+    n = (3 << 20) + 12345
+    data = np.concatenate([
+        (rng.zipf(1.3, n // 3) % 200).astype(np.uint8),
+        rng.integers(0, 256, n // 3, dtype=np.uint8),
+        np.minimum(rng.geometric(0.08, n - 2 * (n // 3)), 255).astype(np.uint8),
+    ])
+    want = tpuhuff_torch.compress(data).to_bytes()
+    for mesh in (make_mesh([dev]), make_mesh([dev] * 4)):
+        before = histogram.launches, encode_blocks.launches
+        got = compress_sharded(data, block_len=65536, mesh=mesh)
+        torch.cuda.synchronize()
+        assert (histogram.launches - before[0],
+                encode_blocks.launches - before[1]) == (len(mesh), len(mesh))
+        assert got.to_bytes() == want
+        assert tpuhuff_torch.decompress(got) == data.tobytes()
+    assert dryrun_multichip(4, dev)["bits"] > 0

@@ -121,7 +121,11 @@ def test_guard_covers_the_host_and_entry_modules():
     for path in ("tpuhuff_torch/cli/main.py", "tpuhuff_torch/cli/__init__.py",
                  "tpuhuff_torch/cli/__main__.py", "tpuhuff_torch/__main__.py",
                  "tpuhuff_torch/profiling.py", "tpuhuff_torch/io/index.py",
-                 "tpuhuff_torch/io/host.py", "tpuhuff_torch/native.py"):
+                 "tpuhuff_torch/io/host.py", "tpuhuff_torch/native.py",
+                 "tpuhuff_torch/core/codec.py", "tpuhuff_torch/io/crc.py",
+                 "tpuhuff_torch/dist/block.py", "tpuhuff_torch/dist/mesh.py",
+                 "tpuhuff_torch/dist/multihost.py",
+                 "tpuhuff_torch/dist/dryrun.py"):
         assert path in scanned, path
 
 
@@ -139,13 +143,34 @@ def _run_python(code: str) -> None:
     "tpuhuff_torch", "tpuhuff_torch.core", "tpuhuff_torch.native",
     "tpuhuff_torch.io", "tpuhuff_torch.io.hff", "tpuhuff_torch.io.host",
     "tpuhuff_torch.io.index", "tpuhuff_torch.io.dataset",
-    "tpuhuff_torch.profiling", "tpuhuff_torch.cli"])
+    "tpuhuff_torch.profiling", "tpuhuff_torch.cli",
+    "tpuhuff_torch.core.codec", "tpuhuff_torch.core.utils",
+    "tpuhuff_torch.io.crc"])
 def test_host_modules_import_without_torch(module):
     """The host layers import no torch, so that a host-only use keeps its
     address space small."""
     _run_python(
         "import importlib\n"
         f"importlib.import_module({module!r})\n"
+        "assert 'torch' not in sys.modules, sorted(\n"
+        "    m for m in sys.modules if m.startswith('tpuhuff_torch'))\n"
+        "print('ok')\n")
+
+
+def test_in_memory_codec_loads_no_torch():
+    """``tpuhuff_torch.compress`` / ``decompress`` are a host path: the
+    package's lazy names bring in no torch for them."""
+    _run_python(
+        "import tpuhuff_torch\n"
+        "data = bytes(range(256)) * 40 + b'abbccc' * 999\n"
+        "comp = tpuhuff_torch.compress(data)\n"
+        "raw = comp.to_bytes()\n"
+        "back = tpuhuff_torch.CompressData.try_from_bytes(raw)\n"
+        "assert tpuhuff_torch.decompress(back) == data\n"
+        "assert tpuhuff_torch.decompress(tpuhuff_torch.compress([1, 2, 2]))"
+        " == bytes([1, 2, 2])\n"
+        "assert tpuhuff_torch.compress(b'abbccc').to_bytes().hex() == "
+        "'370000000498e61310bc00'\n"
         "assert 'torch' not in sys.modules, sorted(\n"
         "    m for m in sys.modules if m.startswith('tpuhuff_torch'))\n"
         "print('ok')\n")

@@ -4,7 +4,10 @@ The port sits beside the JAX package and imports nothing of it.  It keeps
 its own copies of the host layers it needs, laid out under the JAX
 package's names and writing the same bytes:
 
-* :mod:`tpuhuff_torch.core` — bits, weights, trees, canonical codes;
+* :mod:`tpuhuff_torch.core` — bits, weights, trees, canonical codes, the
+  ``.hff`` container (:class:`CompressData`) and the in-memory codec
+  (:func:`compress`, :func:`decompress`), whose names are also this
+  package's, as they are the JAX package's;
 * :mod:`tpuhuff_torch.native` — the C++ host runtime, built with ``g++``
   from the repository's ``cpp/huffc.cpp`` into ``tpuhuff_torch/_build/``;
 * :mod:`tpuhuff_torch.io.hff`, :mod:`tpuhuff_torch.io.host` and
@@ -17,7 +20,10 @@ device:
 * :mod:`tpuhuff_torch.kernels` — the CUDA kernels (encode, with or
   without a fused histogram; canonical and general-tree decode;
   histogram), each with its plain PyTorch version;
-* :mod:`tpuhuff_torch.dist` — host lane padding and bit stitch;
+* :mod:`tpuhuff_torch.dist` — the block-parallel pipelines on a mesh of
+  devices (:func:`~tpuhuff_torch.dist.compress_sharded`) and the
+  multi-process file codec on ``torch.distributed``
+  (:mod:`tpuhuff_torch.dist.multihost`);
 * :mod:`tpuhuff_torch.io` — the ``.hf2`` device round trip
   (:func:`read_compress_write_hf2`, :func:`read_decompress_write_hf2`),
   the ``.hff`` writer and reader (:func:`read_compress_write`,
@@ -31,24 +37,36 @@ names below load at first use (PEP 562), so importing the package pulls
 in no torch.
 """
 
-_EXPORTS = (
-    "compress_dataset",
-    "decompress_dataset",
-    "read_compress_write",
-    "read_compress_write_hf2",
-    "read_decompress_write",
-    "read_decompress_write_hf2",
-)
+import importlib
 
-__all__ = list(_EXPORTS)
+_LETTER_TYPES = ("U8", "U16", "U32", "U64", "U128", "I8", "I16", "I32", "I64",
+                 "I128")
+
+# public name -> the submodule that defines it: every name of
+# :mod:`tpuhuff_torch.core` (the JAX package's top-level names), and the
+# file codec of :mod:`tpuhuff_torch.io`
+_EXPORTS = {
+    **{name: "core" for name in (
+        *_LETTER_TYPES, "BitString", "ByteWeights", "Code", "CompressData",
+        "CompressError", "CompressedDataFromBytesError", "EmptyWeightsError",
+        "FromBinError", "HuffTree", "LetterType", "build_weights_map",
+        "calc_padding_bits", "compress", "compress_with_tree", "decompress",
+        "letter_type", "offset_bytes", "pack_codes_u8", "unpack_codes_u8")},
+    **{name: "io" for name in (
+        "compress_dataset", "decompress_dataset", "read_compress_write",
+        "read_compress_write_hf2", "read_decompress_write",
+        "read_decompress_write_hf2")},
+}
+
+# the functions and classes; the letter-type constants load all the same
+__all__ = sorted(set(_EXPORTS) - set(_LETTER_TYPES))
 
 
 def __getattr__(name):
-    if name not in _EXPORTS:
+    module = _EXPORTS.get(name)
+    if module is None:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-    from . import io
-
-    value = getattr(io, name)
+    value = getattr(importlib.import_module(f".{module}", __name__), name)
     globals()[name] = value
     return value
 

@@ -1,17 +1,18 @@
 """MSB-first bit vectors and padding math.
 
-The port's copy of :mod:`tpuhuff.core.bits` (``BitString`` and
-``calc_padding_bits``), with the same arithmetic and bytes: bits are stored
-most-significant-first, and a bit vector converts to bytes by zero-padding
-the low bits of the last byte, as the reference's ``BitVec<Msb0, u8>``
-does (``huff_coding/src/utils.rs:37-40`` for the padding).
+The port's copy of :mod:`tpuhuff.core.bits` (``BitString``,
+``calc_padding_bits`` and ``offset_bytes``), with the same arithmetic and
+bytes: bits are stored most-significant-first, and a bit vector converts
+to bytes by zero-padding the low bits of the last byte, as the reference's
+``BitVec<Msb0, u8>`` does (``huff_coding/src/utils.rs:37-40`` for the
+padding).
 """
 
 from __future__ import annotations
 
-from typing import Iterator
+from typing import Iterable, Iterator
 
-__all__ = ["BitString", "calc_padding_bits"]
+__all__ = ["BitString", "calc_padding_bits", "offset_bytes"]
 
 
 def calc_padding_bits(bit_count: int) -> int:
@@ -47,9 +48,20 @@ class BitString:
         value >>= total - bit_length
         return cls(value, bit_length)
 
+    @classmethod
+    def from_bits(cls, bits: Iterable[int]) -> "BitString":
+        s = cls()
+        for b in bits:
+            s.push(b)
+        return s
+
     def push(self, bit: int) -> None:
         self.value = (self.value << 1) | (1 if bit else 0)
         self.length += 1
+
+    def extend(self, other: "BitString") -> None:
+        self.value = (self.value << other.length) | other.value
+        self.length += other.length
 
     def push_uint(self, value: int, width: int) -> None:
         """Append ``width`` big-endian bits of ``value``."""
@@ -57,6 +69,15 @@ class BitString:
             raise ValueError("value does not fit in width")
         self.value = (self.value << width) | value
         self.length += width
+
+    def pop(self) -> int:
+        """Remove and return the last bit (``BitVec::pop``)."""
+        if self.length == 0:
+            raise IndexError("pop from empty BitString")
+        bit = self.value & 1
+        self.value >>= 1
+        self.length -= 1
+        return bit
 
     def __len__(self) -> int:
         return self.length
@@ -71,6 +92,16 @@ class BitString:
     def __iter__(self) -> Iterator[int]:
         for i in range(self.length):
             yield (self.value >> (self.length - 1 - i)) & 1
+
+    def __eq__(self, other: object) -> bool:
+        return (
+            isinstance(other, BitString)
+            and self.length == other.length
+            and self.value == other.value
+        )
+
+    def __hash__(self) -> int:
+        return hash((self.value, self.length))
 
     def __repr__(self) -> str:
         return f"BitString('{self.to01()}')"
@@ -89,3 +120,15 @@ class BitString:
         s = self.to01()
         groups = [s[i : i + 8] for i in range(0, len(s), 8)]
         return "[" + ", ".join(groups) + "]"
+
+
+def offset_bytes(data: bytes, n: int) -> bytes:
+    """Shift a byte string right by ``n`` bits, re-packed MSB-first
+    (``huff/src/utils.rs:2-25``): ``n // 8`` zero bytes first, the first
+    data bit at bit ``n % 8`` of the next byte, zero-padded to a byte."""
+    if n < 0:
+        raise ValueError("negative offset")
+    total_bits = n + len(data) * 8
+    pad = calc_padding_bits(total_bits)
+    value = int.from_bytes(data, "big") << pad
+    return value.to_bytes((total_bits + pad) // 8, "big")

@@ -14,6 +14,8 @@ bytes:
 * Binary serde (``as_bin``/``try_from_bin``): pre-order, ``1`` per joint
   node, ``0`` plus the letter's big-endian bits per leaf, with strict
   exact-consumption checks.
+* Array forms for the codecs: dense encode tables (``encode_tables``) and
+  the byte-driven decode DFA (``decode_dfa``).
 """
 
 from __future__ import annotations
@@ -49,8 +51,29 @@ class Code:
         self.value = value
         self.length = length
 
+    def __iter__(self):
+        v, n = self.value, self.length
+        for i in range(n):
+            yield (v >> (n - 1 - i)) & 1
+
+    def __len__(self) -> int:
+        return self.length
+
+    def __eq__(self, other) -> bool:
+        if isinstance(other, Code):
+            return self.value == other.value and self.length == other.length
+        if isinstance(other, (str, list, tuple)):
+            return self.to01() == "".join(str(int(b)) for b in other)
+        return NotImplemented
+
+    def __hash__(self) -> int:
+        return hash((self.value, self.length))
+
     def to01(self) -> str:
         return format(self.value, f"0{self.length}b") if self.length else ""
+
+    def bits(self) -> BitString:
+        return BitString(self.value, self.length)
 
     def __repr__(self) -> str:
         return f"Code('{self.to01()}')"
@@ -184,6 +207,9 @@ class HuffTree:
     def is_leaf(self, node: int) -> bool:
         return self.left[node] < 0
 
+    def num_leaves(self) -> int:
+        return int(np.count_nonzero(self.left < 0))
+
     def read_codes(self) -> Dict[Hashable, Code]:
         """Letter -> code map: left appends 0, right appends 1; a one-leaf
         root gets code ``0``."""
@@ -240,6 +266,43 @@ class HuffTree:
             [-1 if l is None else int(l) for l in self.letters], dtype=np.int32
         )
         return self.left.copy(), self.right.copy(), lets
+
+    def decode_dfa(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """Byte-driven DFA over the joint nodes: one lookup consumes 8
+        payload bits and emits 0..8 letters.  States are the joint nodes
+        renumbered with the root as state 0 (callers handle a one-leaf
+        tree apart).
+
+        Returns ``(next_state[S,256] int16, emit_count[S,256] uint8,
+        emit_syms[S,256,8] uint8, state_of_node[num_nodes] int16)``.
+        """
+        internal = [n for n in range(self.num_nodes) if not self.is_leaf(n)]
+        if not internal:
+            raise ValueError("decode_dfa needs at least one internal node")
+        internal.sort(key=lambda n: (n != self.root,))  # root first
+        state_of_node = np.full(self.num_nodes, -1, dtype=np.int16)
+        for s, n in enumerate(internal):
+            state_of_node[n] = s
+        S = len(internal)
+        next_state = np.zeros((S, 256), dtype=np.int16)
+        emit_count = np.zeros((S, 256), dtype=np.uint8)
+        emit_syms = np.zeros((S, 256, 8), dtype=np.uint8)
+        root = self.root
+        left, right, letters = self.left, self.right, self.letters
+        for s, start in enumerate(internal):
+            for byte in range(256):
+                node = start
+                count = 0
+                for bit_i in range(7, -1, -1):
+                    bit = (byte >> bit_i) & 1
+                    node = int(right[node] if bit else left[node])
+                    if left[node] < 0:  # leaf
+                        emit_syms[s, byte, count] = int(letters[node])
+                        count += 1
+                        node = root
+                next_state[s, byte] = state_of_node[node]
+                emit_count[s, byte] = count
+        return next_state, emit_count, emit_syms, state_of_node
 
     def as_bin(self, ltype: LetterType | str = U8) -> BitString:
         """Pre-order bit encoding of the tree."""
@@ -328,3 +391,9 @@ class HuffTree:
 
     def __repr__(self) -> str:
         return f"HuffTree(num_nodes={self.num_nodes}, root={self.root})"
+
+    def __eq__(self, other) -> bool:
+        """Same shape and letters (weights ignored)."""
+        if not isinstance(other, HuffTree):
+            return NotImplemented
+        return self.read_codes() == other.read_codes()

@@ -69,9 +69,12 @@ struct Ladder {
   }
 };
 
+// kGlobalRows: the route of rows too wide for shared memory
+// (decode_common.cuh)
+template <bool kGlobalRows>
 __global__ void __launch_bounds__(tpuhuff_decode::kMaxThreads)
 decode_rows_kernel(Params p, Ladder::Args a) {
-  tpuhuff_decode::decode_tiles<Ladder>(p, a);
+  tpuhuff_decode::decode_tiles<Ladder, kGlobalRows>(p, a);
 }
 
 }  // namespace
@@ -80,7 +83,8 @@ extern "C" int tpuhuff_decode_rows(const void* rows, const void* bit0,
                                    const void* nbits, const void* ub,
                                    const void* dd, const void* perm,
                                    const void* lut, void* out, int B, int W,
-                                   int block_len, int max_len, void* stream) {
+                                   int block_len, int max_len,
+                                   int* global_rows, void* stream) {
   Params p{};
   p.rows = static_cast<const uint32_t*>(rows);
   p.bit0 = static_cast<const int32_t*>(bit0);
@@ -93,12 +97,15 @@ extern "C" int tpuhuff_decode_rows(const void* rows, const void* bit0,
   const Ladder::Args a{static_cast<const uint32_t*>(ub),
                        static_cast<const int32_t*>(dd),
                        static_cast<const uint8_t*>(perm), max_len};
-  return tpuhuff_decode::launch(decode_rows_kernel, p, a, Ladder::kSmemBytes,
-                                static_cast<cudaStream_t>(stream));
+  return tpuhuff_decode::launch<Ladder::Args>(
+      decode_rows_kernel<false>, decode_rows_kernel<true>, p, a,
+      Ladder::kSmemBytes, global_rows, static_cast<cudaStream_t>(stream));
 }
 
-// Blocks per thread block that tpuhuff_decode_rows takes (decode_common.cuh).
+// Blocks per thread block that tpuhuff_decode_rows takes through shared
+// memory; 0: the global-rows route (decode_common.cuh).
 extern "C" int tpuhuff_decode_rows_tile(int B, int W, int block_len) {
-  return tpuhuff_decode::tile_rows(decode_rows_kernel, Ladder::kSmemBytes, B,
-                                   W, block_len);
+  return tpuhuff_decode::tile_rows<Ladder::Args>(
+      decode_rows_kernel<false>, decode_rows_kernel<true>, Ladder::kSmemBytes,
+      B, W, block_len);
 }

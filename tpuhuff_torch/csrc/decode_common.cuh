@@ -38,7 +38,13 @@
 //     Pieces, not whole rows, keep the shared memory per block small, so
 //     more blocks are in flight;
 //   * a persistent grid: as many thread blocks as fit on the card at once,
-//     each looping over tiles, so the table is loaded once per block.
+//     each looping over tiles, so the table is loaded once per block;
+//   * rows too wide for shared memory (one row's words beside the table and
+//     the output piece: from about 49,500 words, e.g. 64 KiB blocks of 32-bit
+//     codes) take the same body with kGlobalRows: no input tile, each
+//     cursor reads its row's words from device memory.  The kernel of that
+//     route is a second instance of the template, chosen at launch from
+//     the row width; the launch reports which one it took.
 
 #pragma once
 
@@ -79,12 +85,15 @@ struct Params {
 
 __host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
 
-// Shared memory layout: [lut][rule tables][input span][output piece].
-// Returns the bytes for `rows` rows per tile and fills p's layout fields.
-__host__ inline size_t layout(Params& p, int rows, int rule_bytes) {
+// Shared memory layout: [lut][rule tables][input span][output piece]; with
+// global_rows the input span is empty.  Returns the bytes for `rows` rows
+// per tile and fills p's layout fields.
+__host__ inline size_t layout(Params& p, int rows, int rule_bytes,
+                              bool global_rows) {
   const size_t lut_bytes = round16((1 << kLutBits) * 2);
   // the span and a 3-word head slack (see span_head), rounded to 16 bytes
-  const size_t in_words = (static_cast<size_t>(rows) * p.W + 3 + 3) & ~size_t(3);
+  const size_t in_words =
+      global_rows ? 0 : (static_cast<size_t>(rows) * p.W + 3 + 3) & ~size_t(3);
   p.tile_rows = rows;
   p.rule_off = static_cast<int>(lut_bytes);
   p.in_off = static_cast<int>(lut_bytes + round16(rule_bytes));
@@ -94,10 +103,11 @@ __host__ inline size_t layout(Params& p, int rows, int rule_bytes) {
 
 // The most rows (<= kTileRows, a multiple of 32 from 32 up) whose tile fits
 // in max_smem bytes, or 0 if not even one row fits.
-__host__ inline int choose_rows(Params& p, int rule_bytes, size_t max_smem) {
+__host__ inline int choose_rows(Params& p, int rule_bytes, size_t max_smem,
+                                bool global_rows) {
   int rows = kTileRows >= 32 ? kTileRows - kTileRows % 32 : kTileRows;
   for (; rows >= 1; rows = rows > 32 ? rows - 32 : rows - 1) {
-    if (layout(p, rows, rule_bytes) <= max_smem) return rows;
+    if (layout(p, rows, rule_bytes, global_rows) <= max_smem) return rows;
   }
   return 0;
 }
@@ -262,8 +272,9 @@ __device__ __forceinline__ void store_piece(const Params& p, const uint8_t* s_ou
   }
 }
 
-// The kernel body: a persistent loop over tiles.
-template <class Rule>
+// The kernel body: a persistent loop over tiles.  kGlobalRows: the cursors
+// read their rows from device memory, and no input tile is staged.
+template <class Rule, bool kGlobalRows>
 __device__ __forceinline__ void decode_tiles(const Params& p,
                                              const typename Rule::Args& args) {
   extern __shared__ __align__(16) uint8_t smem[];
@@ -281,8 +292,10 @@ __device__ __forceinline__ void decode_tiles(const Params& p,
   const Rule rule = Rule::load(smem + p.rule_off, args, tid, nt);
 
   for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
-    stage_tile(p, tile, s_in, tid, nt);
-    cp_async_wait_all();
+    if constexpr (!kGlobalRows) {
+      stage_tile(p, tile, s_in, tid, nt);
+      cp_async_wait_all();
+    }
     __syncthreads();  // the span, and at the first tile the tables
 
     const int64_t b0 = static_cast<int64_t>(tile) * p.tile_rows;
@@ -290,8 +303,9 @@ __device__ __forceinline__ void decode_tiles(const Params& p,
     Cursor cur;
     cur.rem = -1;
     if (tid < rows) {
-      cur.start(s_in + span_head(p, b0) + tid * p.W, p.W, p.bit0[b0 + tid],
-                p.nbits[b0 + tid]);
+      const uint32_t* row =
+          kGlobalRows ? p.rows + (b0 + tid) * p.W : s_in + span_head(p, b0) + tid * p.W;
+      cur.start(row, p.W, p.bit0[b0 + tid], p.nbits[b0 + tid]);
     }
     uint8_t* mine = s_out + tid * kPieceStride;
     for (int c0 = 0; c0 < BL; c0 += kPiece) {
@@ -325,32 +339,40 @@ __device__ __forceinline__ void decode_tiles(const Params& p,
 // kTileRows), then as few as still take the same number of waves of
 // resident thread blocks, so that the last wave is full and a small launch
 // spreads over more SMs.  The grid: as many thread blocks as are resident
-// at once (a persistent loop over tiles).
+// at once (a persistent loop over tiles).  A row too wide for one tile in
+// shared memory takes the global-rows route (out.global_rows).
 struct Plan {
   int rows, threads, grid;
   size_t smem;
+  bool global_rows;
 };
 
 template <class Args>
-cudaError_t plan(void (*kernel)(Params, Args), Params& p, int rule_bytes,
-                 Plan& out) {
+using Kernel = void (*)(Params, Args);
+
+template <class Args>
+cudaError_t plan(Kernel<Args> staged, Kernel<Args> global, Params& p,
+                 int rule_bytes, Plan& out) {
   int dev = 0, max_smem = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+  if (err != cudaSuccess) return err;
+  int fit = choose_rows(p, rule_bytes, static_cast<size_t>(max_smem), false);
+  out.global_rows = fit == 0;
+  if (out.global_rows) fit = choose_rows(p, rule_bytes, static_cast<size_t>(max_smem), true);
+  if (fit == 0) return cudaErrorInvalidValue;  // not even the output piece fits
+  const Kernel<Args> kernel = out.global_rows ? global : staged;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
   if (err == cudaSuccess)  // all of L1 that shared memory may take
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                static_cast<int>(cudaSharedmemCarveoutMaxShared));
   if (err != cudaSuccess) return err;
-  const int fit = choose_rows(p, rule_bytes, static_cast<size_t>(max_smem));
-  if (fit == 0) return cudaErrorInvalidValue;  // one row does not fit
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, (fit + 31) & ~31, layout(p, fit, rule_bytes));
+      &per_sm, kernel, (fit + 31) & ~31, layout(p, fit, rule_bytes, out.global_rows));
   if (err != cudaSuccess) return err;
   const int64_t slots = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) * sms;
   const int64_t waves = (p.B + slots * fit - 1) / (slots * fit);
@@ -358,7 +380,7 @@ cudaError_t plan(void (*kernel)(Params, Args), Params& p, int rule_bytes,
   out.rows = static_cast<int>(even < fit ? ((even + 31) & ~int64_t(31)) : fit);
   if (out.rows > fit) out.rows = fit;
   out.threads = (out.rows + 31) & ~31;
-  out.smem = layout(p, out.rows, rule_bytes);
+  out.smem = layout(p, out.rows, rule_bytes, out.global_rows);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, out.threads, out.smem);
   if (err != cudaSuccess) return err;
   p.n_tiles = static_cast<int>((static_cast<int64_t>(p.B) + out.rows - 1) / out.rows);
@@ -367,29 +389,35 @@ cudaError_t plan(void (*kernel)(Params, Args), Params& p, int rule_bytes,
   return cudaSuccess;
 }
 
+// Sets *global_rows (where not null) to 1 if the launch took the
+// global-rows route, else 0.
 template <class Args>
-int launch(void (*kernel)(Params, Args), Params p, const Args& args,
-           int rule_bytes, cudaStream_t stream) {
+int launch(Kernel<Args> staged, Kernel<Args> global, Params p, const Args& args,
+           int rule_bytes, int* global_rows, cudaStream_t stream) {
+  if (global_rows) *global_rows = 0;
   if (p.B <= 0) return 0;
   Plan pl;
-  const cudaError_t err = plan(kernel, p, rule_bytes, pl);
+  const cudaError_t err = plan(staged, global, p, rule_bytes, pl);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<pl.grid, pl.threads, pl.smem, stream>>>(p, args);
+  if (global_rows) *global_rows = pl.global_rows ? 1 : 0;
+  (pl.global_rows ? global : staged)<<<pl.grid, pl.threads, pl.smem, stream>>>(p, args);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Rows per tile that launch() takes for B blocks of rows of W words on the
-// current device (0: one row does not fit; -1: a CUDA error).
+// current device, staged through shared memory (0: one row does not fit,
+// and launch() takes the global-rows route; -1: a CUDA error).
 template <class Args>
-int tile_rows(void (*kernel)(Params, Args), int rule_bytes, int B, int W,
-              int block_len) {
+int tile_rows(Kernel<Args> staged, Kernel<Args> global, int rule_bytes, int B,
+              int W, int block_len) {
   Params p{};
   p.B = B > 0 ? B : 1;
   p.W = W;
   p.block_len = block_len;
   Plan pl;
-  const cudaError_t err = plan(kernel, p, rule_bytes, pl);
-  return err == cudaSuccess ? pl.rows : err == cudaErrorInvalidValue ? 0 : -1;
+  const cudaError_t err = plan(staged, global, p, rule_bytes, pl);
+  if (err != cudaSuccess) return -1;
+  return pl.global_rows ? 0 : pl.rows;
 }
 
 }  // namespace tpuhuff_decode

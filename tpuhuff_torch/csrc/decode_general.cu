@@ -70,9 +70,12 @@ struct Search {
   }
 };
 
+// kGlobalRows: the route of rows too wide for shared memory
+// (decode_common.cuh)
+template <bool kGlobalRows>
 __global__ void __launch_bounds__(tpuhuff_decode::kMaxThreads)
 decode_rows_general_kernel(Params p, Search::Args a) {
-  tpuhuff_decode::decode_tiles<Search>(p, a);
+  tpuhuff_decode::decode_tiles<Search, kGlobalRows>(p, a);
 }
 
 }  // namespace
@@ -81,7 +84,8 @@ extern "C" int tpuhuff_decode_rows_general(const void* rows, const void* bit0,
                                            const void* nbits, const void* thr,
                                            const void* sym, const void* len,
                                            const void* lut, void* out, int B,
-                                           int W, int block_len, void* stream) {
+                                           int W, int block_len,
+                                           int* global_rows, void* stream) {
   Params p{};
   p.rows = static_cast<const uint32_t*>(rows);
   p.bit0 = static_cast<const int32_t*>(bit0);
@@ -94,13 +98,15 @@ extern "C" int tpuhuff_decode_rows_general(const void* rows, const void* bit0,
   const Search::Args a{static_cast<const uint32_t*>(thr),
                        static_cast<const uint8_t*>(sym),
                        static_cast<const uint8_t*>(len)};
-  return tpuhuff_decode::launch(decode_rows_general_kernel, p, a,
-                                Search::kSmemBytes,
-                                static_cast<cudaStream_t>(stream));
+  return tpuhuff_decode::launch<Search::Args>(
+      decode_rows_general_kernel<false>, decode_rows_general_kernel<true>, p,
+      a, Search::kSmemBytes, global_rows, static_cast<cudaStream_t>(stream));
 }
 
-// Blocks per thread block that tpuhuff_decode_rows_general takes.
+// Blocks per thread block that tpuhuff_decode_rows_general takes through
+// shared memory; 0: the global-rows route.
 extern "C" int tpuhuff_decode_rows_general_tile(int B, int W, int block_len) {
-  return tpuhuff_decode::tile_rows(decode_rows_general_kernel,
-                                   Search::kSmemBytes, B, W, block_len);
+  return tpuhuff_decode::tile_rows<Search::Args>(
+      decode_rows_general_kernel<false>, decode_rows_general_kernel<true>,
+      Search::kSmemBytes, B, W, block_len);
 }

@@ -36,6 +36,8 @@ from ..core.format import CompressError
 from ..core.tree import HuffTree
 from ..core.weights import ByteWeights
 from ..dist import pad_to_blocks, stitch_words
+from ..dist.block import lane_of
+from ..dist.mesh import resolve_device as _resolve
 from ..kernels import (
     decoder_for,
     encode_blocks,
@@ -73,19 +75,6 @@ DEVICE_DECODE_MAX_BLOCK = 2048
 
 _TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8,
                  np.dtype(np.int32): torch.int32}
-
-
-def _resolve(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"device {device!r} requested, but "
-                               "torch.cuda.is_available() is False")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
 
 
 class _Staging:
@@ -161,7 +150,7 @@ def _device_block_encoder(tree: HuffTree, block_len: int,
     bin 0, as the JAX route does."""
     tables = make_encode_tables(*tree.encode_tables()).to(device)
     ml = tables.max_len
-    lane = min(block_len & -block_len, DEVICE_HF2_BLOCK)
+    lane = lane_of(block_len)
     per_block = block_len // lane
     names = ("words", "bits", "miss", "hist")
 

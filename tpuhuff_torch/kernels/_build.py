@@ -45,12 +45,13 @@ _SIGNATURES = {
     "tpuhuff_encode_lanes_hist": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
                                   _L, _P, _P],
     # rows, bit0, nbits, ub, dd, perm, lut, out, B, W, block_len, max_len,
-    # stream
+    # global_rows (int*, out: the route taken; may be null), stream
     "tpuhuff_decode_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _P],
-    # rows, bit0, nbits, thr, sym, len, lut, out, B, W, block_len, stream
+                            _P, _P],
+    # rows, bit0, nbits, thr, sym, len, lut, out, B, W, block_len,
+    # global_rows, stream
     "tpuhuff_decode_rows_general": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                    _I, _P],
+                                    _I, _P, _P],
     # B, W, block_len (queries: no stream)
     "tpuhuff_decode_rows_tile": [_I, _I, _I],
     "tpuhuff_decode_rows_general_tile": [_I, _I, _I],

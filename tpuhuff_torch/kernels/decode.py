@@ -20,11 +20,16 @@ arithmetic, so both packages feed their kernels identical operands.
 
 Both kernels first look the window's top ``LUT_BITS`` bits up in a
 first-level table, ``lut`` (:func:`first_level_table`, built here on the
-host), and run their own rule above only where an entry escapes.
+host), and run their own rule above only where an entry escapes.  A row
+too wide to be staged in shared memory (:func:`decode_tile_rows` 0) takes
+the kernels' global-rows route, which reads it from device memory; the
+launch reports the route it took, and such launches are also counted in
+``<wrapper>.global_launches``.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import numpy as np
@@ -361,16 +366,19 @@ def decode_rows(rows: torch.Tensor, bit0: torch.Tensor, nbits: torch.Tensor,
     if rows.device.type != "cuda":
         raise ValueError(f"unsupported device {rows.device}")
     out = torch.empty((B, block_len), dtype=torch.uint8, device=rows.device)
+    route = ctypes.c_int(0)
     _build.launch("tpuhuff_decode_rows", rows.device, rows.data_ptr(),
                   bit0.data_ptr(), nbits.data_ptr(), tables.ub.data_ptr(),
                   tables.dd.data_ptr(), tables.perm.data_ptr(),
                   tables.lut.data_ptr(), out.data_ptr(), B, W, int(block_len),
-                  tables.max_len)
+                  tables.max_len, ctypes.addressof(route))
     decode_rows.launches += 1
+    decode_rows.global_launches += route.value
     return out
 
 
-decode_rows.launches = 0
+decode_rows.launches = 0         # K2, both routes
+decode_rows.global_launches = 0  # K2's global-rows route
 
 
 def decode_rows_reference(rows: torch.Tensor, bit0: torch.Tensor,
@@ -418,15 +426,19 @@ def decode_rows_general(rows: torch.Tensor, bit0: torch.Tensor,
     if rows.device.type != "cuda":
         raise ValueError(f"unsupported device {rows.device}")
     out = torch.empty((B, block_len), dtype=torch.uint8, device=rows.device)
+    route = ctypes.c_int(0)
     _build.launch("tpuhuff_decode_rows_general", rows.device, rows.data_ptr(),
                   bit0.data_ptr(), nbits.data_ptr(), tables.thr.data_ptr(),
                   tables.sym.data_ptr(), tables.len.data_ptr(),
-                  tables.lut.data_ptr(), out.data_ptr(), B, W, int(block_len))
+                  tables.lut.data_ptr(), out.data_ptr(), B, W, int(block_len),
+                  ctypes.addressof(route))
     decode_rows_general.launches += 1
+    decode_rows_general.global_launches += route.value
     return out
 
 
-decode_rows_general.launches = 0
+decode_rows_general.launches = 0         # K4, both routes
+decode_rows_general.global_launches = 0  # K4's global-rows route
 
 
 def decode_rows_general_reference(rows: torch.Tensor, bit0: torch.Tensor,
@@ -462,13 +474,16 @@ def decode_rows_general_reference(rows: torch.Tensor, bit0: torch.Tensor,
 def decode_tile_rows(B: int, W: int, block_len: int, general: bool,
                      device="cuda") -> int:
     """Huffman blocks per thread block that :func:`decode_rows` (or, with
-    ``general``, :func:`decode_rows_general`) takes on ``device`` for B
-    rows of W words; 0 if one row does not fit in shared memory (the
-    launch then raises)."""
+    ``general``, :func:`decode_rows_general`) stages through shared memory
+    on ``device`` for B rows of W words; 0 if one row does not fit there,
+    and the launch then takes the global-rows route."""
     name = ("tpuhuff_decode_rows_general_tile" if general
             else "tpuhuff_decode_rows_tile")
     with torch.cuda.device(torch.device(device)):
-        return getattr(_build.lib(), name)(int(B), int(W), int(block_len))
+        n = getattr(_build.lib(), name)(int(B), int(W), int(block_len))
+    if n < 0:
+        raise RuntimeError(f"{name}: CUDA error")
+    return n
 
 
 def decode_hf2_device(header, payload: bytes, device="cuda") -> bytes:

@@ -19,7 +19,8 @@ same arguments and results):
 * :func:`build_dfa` / :func:`decode_blocks` — byte-driven DFA decode of
   independent bit ranges;
 * :func:`decode_resume` — DFA decode of one bit range, resumable at the
-  last complete code (the streamed ``.hff`` reader);
+  last complete code (the streamed ``.hff`` reader), and :func:`decode`,
+  the same without the resume offset (the in-memory codec);
 * :func:`index_blocks` / :func:`spec_index` — the bit offset after every
   ``block_len``-th letter of a bit range, serially or split across
   threads by DFA self-synchronization (the ``.hff`` sidecar index);
@@ -56,6 +57,7 @@ __all__ = [
     "encode_blocks_host",
     "DfaTables",
     "build_dfa",
+    "decode",
     "decode_resume",
     "decode_blocks",
     "decode_index",
@@ -333,6 +335,14 @@ class DfaTables:
 
 def build_dfa(tree) -> DfaTables:
     return DfaTables(tree)
+
+
+def decode(comp: np.ndarray, start_bit: int, end_bit: int,
+           tables: DfaTables, out_cap: int) -> bytes:
+    """The letters of the bit range ``[start_bit, end_bit)`` of ``comp``
+    (:func:`decode_resume` without its resume offset); more than
+    ``out_cap`` letters raise ``RuntimeError``."""
+    return decode_resume(comp, start_bit, end_bit, tables, out_cap)[0]
 
 
 def decode_resume(comp: np.ndarray, start_bit: int, end_bit: int,
