@@ -29,12 +29,13 @@ Phases (any failure exits non-zero and prints no result line):
    that are not codes, and on host-written ``.hf2`` payloads at
    ``block_len`` 1000 and 2048; K4 on a tree of two leaves (one-bit
    codes), either way round; K2 and K4 on rows of 60,000 random words,
-   too wide for shared memory (their global-rows route), and on 16 blocks
-   of 65536 codes of 25-32 bits (the shape of a phase-7b launch on that
-   route, timed there); histograms (K3) from 1 B to 100 MiB.  The
-   decoders' first-level table size k, rows per thread block n and the
-   share of the main input's symbols that escape the table; kernel, plain
-   and library-call times at the main path's shapes, and K1 and K5 at
+   too wide for shared memory (their global-rows route: one thread block
+   per Huffman block, split into self-synchronising subsequences), and on
+   16 blocks of 65536 codes of 25-32 bits (the shape of a phase-7b launch
+   on that route, timed there, also alone); histograms (K3) from 1 B to
+   100 MiB.  The decoders' first-level table size k, rows per thread block n and
+   the share of the main input's symbols that escape the table; kernel,
+   plain and library-call times at the main path's shapes, and K1 and K5 at
    lanes of 8 bytes; for every kernel also a second reading, the device's
    time alone (the runs enqueued behind a spin on the device) beside the
    wrapper's host time per call;
@@ -80,10 +81,11 @@ Phases (any failure exits non-zero and prints no result line):
    its own (non-canonical) tree, K4 alone, and under the canonical tree,
    K2 alone, all exact (the corpus's codes stop at about 10 bits: one
    tree over a uniform random third has none past 14); then 64 blocks of
-   65536 codes of 15-24 bits each way (rows staged in shared memory, every
-   code past the first-level table) and 64 of 25-32 bits, whose rows are
-   too wide for shared memory (the global-rows route of K2 and K4), exact,
-   and ``decode_tile_rows`` at 4096 and 65536 bytes for 8-, 14- and 32-bit
+   65536 codes of 15-24 bits each way (every code past the first-level
+   table; rows that the staged route fits fewer than 32 to a thread block,
+   so the global-rows route of K2 and K4) and 64 of 25-32 bits, whose rows
+   are too wide for shared memory (the global-rows route), exact, and
+   ``decode_tile_rows`` at 4096 and 65536 bytes for 8-, 14- and 32-bit
    codes; (c) config 5 on one card: two processes in a gloo group, both on
    cuda:0, each with a timeout, run ``dist.multihost.compress_file_multihost``
    (64 MiB super-chunks) and ``decompress_file_multihost`` on 256 MiB +
@@ -558,8 +560,9 @@ def phase7_mesh(dev, card: str, reset, read, np, torch) -> dict:
     del host, want, cpayload, data
 
     # 7b (iii): blocks of 65536 codes of 15 to 24 bits (the corpus's tree
-    # has none past 14): rows staged in shared memory, every code escaping
-    # the first-level table
+    # has none past 14), every code escaping the first-level table: rows
+    # that the staged route would fit one to a thread block, fewer than 32,
+    # so they take the global-rows route
     for key, (t, long_, rows, bit0, bits) in wide_code_blocks(
             np, 64, lengths=(15, 24)).items():
         glob = f"{key}_global_rows"
@@ -572,13 +575,12 @@ def phase7_mesh(dev, card: str, reset, read, np, torch) -> dict:
         c = read()
         if not np.array_equal(got.reshape(-1), long_):
             fail(f"7b {key} on 15-24-bit codes: the decode is not exact")
-        if tile == 0 or c[glob] or c[key] != len(mesh):
-            fail(f"7b {key} on 15-24-bit codes: not the staged route "
+        if tile != 0 or c[glob] != len(mesh) or c[key] != len(mesh):
+            fail(f"7b {key} on 15-24-bit codes: not the global-rows route "
                  f"({tile} blocks per thread block): {c}")
         log(f"phase 7b: {key}: {rows.shape[0]} blocks of 65536 codes of "
-            f"15-24 bits, rows of {rows.shape[1]} words, {tile} blocks per "
-            f"thread block (staged), exact, {dt:.4f} s wall, launches {c} "
-            f"[{card}]")
+            f"15-24 bits, rows of {rows.shape[1]} words, global-rows route, "
+            f"exact, {dt:.4f} s wall, launches {c} [{card}]")
 
     # 7b (iv): blocks of 65536 codes of 25 to 32 bits: rows too wide for
     # shared memory take the decoders' global-rows route
@@ -1272,6 +1274,7 @@ def main() -> None:
         b0 = torch.from_numpy(bit0_np).to(dev)
         nb = torch.from_numpy(bits_np).to(dev)
         ms = cuda_ms(torch, lambda: decode(r, b0, nb, tab, 65536))
+        alone_ms, _ = spin_ms(torch, lambda: decode(r, b0, nb, tab, 65536))
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1289,7 +1292,8 @@ def main() -> None:
         global_timing[glob] = (ms, plain_ms, moved / HBM_BYTES_PER_MS)
         log(f"phase 3: {glob} at the shape of a phase-7b launch ({r.shape[0]} "
             f"blocks of 65536 codes of 25-32 bits, rows of {r.shape[1]} "
-            f"words): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"words): kernel {ms:.4f} ms, alone {alone_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound "
             f"{moved / HBM_BYTES_PER_MS:.4f} ms ({moved} B at 3.35 TB/s), err "
             f"{err} [{card}]")
     if any(errs.values()):
@@ -1592,7 +1596,7 @@ def main() -> None:
         kernels.append({
             "name": glob, "route": "cuda",
             "source": f"{sources[k][0]} + tpuhuff_torch/csrc/decode_common.cuh"
-                      " (kGlobalRows)",
+                      " + tpuhuff_torch/csrc/decode_split.cuh (kGlobalRows)",
             "replaces": sources[k][1], "launches": routes[glob],
             "max_abs_err": errs[glob], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None})

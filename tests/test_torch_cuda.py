@@ -30,6 +30,8 @@ from tpuhuff_torch.kernels import (
     payload_to_lane_words,
 )
 
+from test_torch_decode_split import CASES, split_case
+
 pytestmark = pytest.mark.cuda
 
 
@@ -291,14 +293,103 @@ def test_decode_global_rows_route_matches_plain(dev, decoder):
     assert torch.equal(got, plain(rows, bit0, nbits, tables, block_len))
 
 
+WIDE = 50_000  # words: a row of which not one fits in shared memory
+
+
+def _widened(rows, nbits):
+    """Rows padded with zero words to WIDE words, so that the launch takes
+    the global-rows route; an end past the rows' old width moves past the
+    new one (words past W still read as 0)."""
+    B, W = rows.shape
+    wide = np.zeros((B, WIDE), dtype=np.uint32)
+    wide[:, :W] = rows
+    return wide, np.where(nbits > 32 * W, 32 * WIDE + 5000, nbits).astype(np.int32)
+
+
+@pytest.mark.parametrize("name,rule", [
+    (name, rule) for name in CASES for rule in ("K2", "K4")] + [
+    ("zero-length leaf", "K4")])
+def test_global_rows_route_edge_cases(dev, name, rule):
+    """The CPU harness's cases (``tests/test_torch_decode_split.py``) on
+    the card, their rows widened past shared memory: the global-rows route
+    (one thread block per Huffman block), bit-exact against the plain
+    version, whole blocks restoring their source.  Random words at
+    ``block_len`` 299 leave the output in 1-byte stores; the other cases
+    take 16-, 8- (``nbits`` edges, 3000) and 4-byte stores (3-bit codes,
+    2500).  The zero-length leaf is a K4 table with a leaf of 0 bits."""
+    from tpuhuff_torch.kernels import GeneralDecodeTables, decode_tile_rows
+
+    case = "bit0 > 0" if name == "zero-length leaf" else name
+    rows, bit0, nbits, tables, block_len, data = split_case(case, rule)
+    if name == "zero-length leaf":
+        lens = tables.len.clone()
+        lens[5] = 0
+        tables = GeneralDecodeTables(tables.thr, tables.sym, lens)
+        data = None
+    if name == "random words":
+        block_len -= 1
+    rows, nbits = _widened(rows, nbits)
+    B = rows.shape[0]
+    assert decode_tile_rows(B, WIDE, block_len, rule == "K4", dev) == 0
+    wrapper, plain = ((decode_rows, decode_rows_reference) if rule == "K2"
+                      else (decode_rows_general, decode_rows_general_reference))
+    rows = torch.from_numpy(rows.view(np.int32)).to(dev)
+    bit0 = torch.from_numpy(bit0).to(dev)
+    nbits = torch.from_numpy(nbits).to(dev)
+    tables = tables.to(dev)
+    before = wrapper.launches, wrapper.global_launches
+    got = wrapper(rows, bit0, nbits, tables, block_len)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.global_launches) == (before[0] + 1,
+                                                           before[1] + 1)
+    assert torch.equal(got, plain(rows, bit0, nbits, tables, block_len))
+    if data is not None:
+        assert np.array_equal(got.cpu().numpy().reshape(-1), data)
+
+
+def test_global_rows_route_output_past_shared_memory(dev):
+    """Blocks of 200,000 bytes: the output row does not fit beside the
+    table, so the global-rows route writes it straight to device memory.
+    Whole blocks restore their source; a block cut 7 bits short keeps its
+    whole codes and is 0 after them."""
+    from tpuhuff_torch.kernels import decode_tile_rows
+
+    rng = np.random.default_rng(200_000)
+    block_len, B = 200_000, 3
+    data = (rng.zipf(1.3, B * block_len) % 90 + 30).astype(np.uint8)
+    tree = _tree(data)
+    payload, _, bit_lens = native.encode_blocks_host(data, block_len,
+                                                     *tree.encode_tables())
+    rows, bit0, nbits = _rows_of(payload, bit_lens, block_len)
+    nbits[1] -= 7
+    rows, nbits = _widened(rows, nbits)
+    assert decode_tile_rows(B, WIDE, block_len, False, dev) == 0
+    tables = make_canonical_decode_tables(tree).to(dev)
+    before = decode_rows.global_launches
+    got = decode_rows(torch.from_numpy(rows.view(np.int32)).to(dev),
+                      torch.from_numpy(bit0).to(dev),
+                      torch.from_numpy(nbits).to(dev), tables, block_len)
+    torch.cuda.synchronize()
+    assert decode_rows.global_launches == before + 1
+    got = got.cpu().numpy()
+    want = data.reshape(B, block_len).copy()
+    lens = tree.encode_tables()[0][want[1]].astype(np.int64)
+    whole = int(np.searchsorted(np.cumsum(lens), nbits[1], side="right"))
+    assert whole < block_len
+    want[1, whole:] = 0
+    assert np.array_equal(got, want)
+
+
 @pytest.mark.parametrize("codes", ["textlike", "32-bit"])
 @pytest.mark.parametrize("canonical", [True, False])
 def test_sharded_decode_blocks_at_64_kib(dev, codes, canonical):
     """``sharded_decode_blocks`` at 65536-byte blocks on ``[cuda] * 2``:
     K2 (canonical) or K4 alone, exact.  Blocks of the Fibonacci tree's
     rarest letters (codes of 25 to 32 bits) are rows too wide for shared
-    memory: the global-rows route."""
+    memory, and of the textlike rows the staged route would fit fewer than
+    32 to a thread block: both take the global-rows route."""
     from tpuhuff_torch.dist import make_mesh, sharded_decode_blocks
+    from tpuhuff_torch.kernels import decode_tile_rows
 
     rng = np.random.default_rng(len(codes) + canonical)
     block_len, B = 65536, 4
@@ -323,9 +414,10 @@ def test_sharded_decode_blocks_at_64_kib(dev, codes, canonical):
                                 make_mesh([dev] * 2))
     torch.cuda.synchronize()
     assert np.array_equal(out.reshape(-1), data)
-    wide = codes == "32-bit"
+    assert decode_tile_rows(B // 2, rows.shape[1], block_len, not canonical,
+                            dev) == 0
     assert (wrapper.launches - before[0], wrapper.global_launches - before[1],
-            other.launches - before[2]) == (2, 2 if wide else 0, 0)
+            other.launches - before[2]) == (2, 2, 0)
 
 
 def test_compress_sharded_on_four_entries_of_one_card(dev):

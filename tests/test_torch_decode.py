@@ -292,7 +292,7 @@ def test_first_level_table_of_a_ladder_of_no_tree(k):
 def test_lut_bits_match_the_kernels():
     """The tables' k is the k the kernels are built with."""
     path = os.path.join(os.path.dirname(__file__), os.pardir, "tpuhuff_torch",
-                        "csrc", "decode_common.cuh")
+                        "csrc", "decode_split.cuh")
     with open(path) as fp:
         found = re.findall(r"#define TPUHUFF_DECODE_LUT_BITS (\d+)", fp.read())
     assert found == [str(LUT_BITS)]

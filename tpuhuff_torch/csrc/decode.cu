@@ -1,4 +1,4 @@
-// Decode kernel (K2): canonical prefix-code decode, one block per thread.
+// Decode kernel (K2): canonical prefix-code decode of independent blocks.
 //
 // Replaces tpuhuff/kernels/pallas_decode.py::_decode_kernel (body
 // _decode_body) on the path tpuhuff_torch.io.stream.read_decompress_write_hf2
@@ -13,68 +13,35 @@
 //   every later position of the block's block_len outputs is 0.
 //
 // What bounds it on an H100, and the design: decode_common.cuh, the body
-// this kernel shares with K4 (decode_general.cu).  The first-level table
-// `lut` (kernels.decode.first_level_table) resolves every window whose top
-// k bits fix (symbol, length) with length <= k; any other window runs the
-// ladder above, so the result equals the plain version on every window,
-// codes or not.  The TPU kernel's 8x128 cells, buffer rolls, select trees
-// and MXU transposes existed because the TPU has no per-lane gather; here
-// the table, the ladder (ub, dd) and perm sit in shared memory.
+// this kernel shares with K4 (decode_general.cu), on two routes: rows
+// staged in shared memory, one thread per block, and rows of which it holds
+// fewer than 32, read from device memory, one thread block per block, its
+// bits split into
+// self-synchronising subsequences (decode_split.cuh).  The first-level
+// table `lut` (kernels.decode.first_level_table) resolves every window
+// whose top k bits fix (symbol, length) with length <= k; any other window
+// runs the ladder above (Ladder, decode_rules.cuh), so the result equals
+// the plain version on every window, codes or not.  The TPU kernel's 8x128
+// cells, buffer rolls, select trees and MXU transposes existed because the
+// TPU has no per-lane gather; here the table, the ladder (ub, dd) and perm
+// sit in shared memory.
 
 #include "decode_common.cuh"
+#include "decode_rules.cuh"
 
 namespace {
 
 using tpuhuff_decode::Params;
+using tpuhuff_decode::Ladder;
+using tpuhuff_decode::kGlobalRows;
+using tpuhuff_decode::kStaged;
 
-struct Ladder {
-  struct Args {
-    const uint32_t* ub;
-    const int32_t* dd;
-    const uint8_t* perm;
-    int max_len;
-  };
-  static constexpr int kSmemBytes = 32 * 4 + 32 * 4 + 256;  // ub, dd, perm
-
-  const uint32_t* ub;
-  const int32_t* dd;
-  const uint8_t* perm;
-  int max_len;
-
-  __device__ static Ladder load(uint8_t* s, const Args& a, int tid, int nt) {
-    uint32_t* ub = reinterpret_cast<uint32_t*>(s);
-    int32_t* dd = reinterpret_cast<int32_t*>(s + 128);
-    uint8_t* perm = s + 256;
-    for (int i = tid; i < 256; i += nt) perm[i] = a.perm[i];
-    for (int i = tid; i < 32; i += nt) {
-      ub[i] = a.ub[i];
-      dd[i] = a.dd[i];
-    }
-    return {ub, dd, perm, a.max_len};
-  }
-
-  // the ladder of the contract, on any window
-  __device__ __forceinline__ void resolve(uint32_t window, uint32_t& sym,
-                                          uint32_t& len) const {
-    int l = 1;
-    uint32_t delta = static_cast<uint32_t>(dd[0]);  // wraps, as the index does
-    for (int L = 1; L < max_len; ++L) {
-      const uint32_t ind = window >= ub[L - 1];
-      l += static_cast<int>(ind);
-      delta += ind * static_cast<uint32_t>(dd[L]);
-    }
-    // l in [1, 32], so the shift is in [0, 31]
-    sym = perm[((window >> (32 - l)) + delta) & 255u];
-    len = static_cast<uint32_t>(l);
-  }
-};
-
-// kGlobalRows: the route of rows too wide for shared memory
-// (decode_common.cuh)
-template <bool kGlobalRows>
+// kRoute: rows staged in shared memory, or the global-rows route
+// (decode_common.cuh, decode_split.cuh)
+template <tpuhuff_decode::Route kRoute>
 __global__ void __launch_bounds__(tpuhuff_decode::kMaxThreads)
 decode_rows_kernel(Params p, Ladder::Args a) {
-  tpuhuff_decode::decode_tiles<Ladder, kGlobalRows>(p, a);
+  tpuhuff_decode::decode_body<Ladder, kRoute>(p, a);
 }
 
 }  // namespace
@@ -98,7 +65,7 @@ extern "C" int tpuhuff_decode_rows(const void* rows, const void* bit0,
                        static_cast<const int32_t*>(dd),
                        static_cast<const uint8_t*>(perm), max_len};
   return tpuhuff_decode::launch<Ladder::Args>(
-      decode_rows_kernel<false>, decode_rows_kernel<true>, p, a,
+      decode_rows_kernel<kStaged>, decode_rows_kernel<kGlobalRows>, p, a,
       Ladder::kSmemBytes, global_rows, static_cast<cudaStream_t>(stream));
 }
 
@@ -106,6 +73,6 @@ extern "C" int tpuhuff_decode_rows(const void* rows, const void* bit0,
 // memory; 0: the global-rows route (decode_common.cuh).
 extern "C" int tpuhuff_decode_rows_tile(int B, int W, int block_len) {
   return tpuhuff_decode::tile_rows<Ladder::Args>(
-      decode_rows_kernel<false>, decode_rows_kernel<true>, Ladder::kSmemBytes,
-      B, W, block_len);
+      decode_rows_kernel<kStaged>, decode_rows_kernel<kGlobalRows>,
+      Ladder::kSmemBytes, B, W, block_len);
 }

@@ -1,5 +1,5 @@
-// General-tree decode kernel (K4): prefix-code decode of any tree, one
-// block per thread.
+// General-tree decode kernel (K4): prefix-code decode of any tree, of
+// independent blocks.
 //
 // Replaces tpuhuff/kernels/pallas_decode.py::_decode_kernel_general (body
 // _decode_body) on the path tpuhuff_torch.io.stream.read_decompress_write_hf2
@@ -18,64 +18,35 @@
 //   TPU kernel's search over the low 2^levels entries.
 //
 // What bounds it on an H100, and the design: decode_common.cuh, the body
-// this kernel shares with K2.  Before the first-level table every symbol
-// paid 8 dependent shared loads of the halving search below; now a window
-// whose top k bits fix (symbol, length) with length <= k costs one load of
-// `lut` (kernels.decode.first_level_table), and only the others run the
-// search, so the result equals the plain version on every window, codes or
-// not.  The TPU kernel's 8x128 cells, buffer roll, select trees, packed
-// store and MXU de-interleave existed for want of a per-lane gather; here
-// the tables (thr, sym, len: 1.5 KiB, and lut) sit in shared memory.
+// this kernel shares with K2, on two routes: rows staged in shared memory,
+// one thread per block, and rows of which it holds fewer than 32, read
+// from device memory, one thread block per block, its bits split into
+// self-synchronising
+// subsequences (decode_split.cuh).  A window whose top k bits fix (symbol,
+// length) with length <= k costs one load of `lut`
+// (kernels.decode.first_level_table); only the others run the 8-step
+// halving search (Search, decode_rules.cuh), so the result equals the
+// plain version on every window, codes or not.  The TPU kernel's 8x128
+// cells, buffer roll, select trees, packed store and MXU de-interleave
+// existed for want of a per-lane gather; here the tables (thr, sym, len:
+// 1.5 KiB, and lut) sit in shared memory.
 
 #include "decode_common.cuh"
+#include "decode_rules.cuh"
 
 namespace {
 
 using tpuhuff_decode::Params;
+using tpuhuff_decode::Search;
+using tpuhuff_decode::kGlobalRows;
+using tpuhuff_decode::kStaged;
 
-struct Search {
-  struct Args {
-    const uint32_t* thr;
-    const uint8_t* sym;
-    const uint8_t* len;
-  };
-  static constexpr int kSmemBytes = 256 * 4 + 256 + 256;  // thr, sym, len
-
-  const uint32_t* thr;
-  const uint8_t* sym;
-  const uint8_t* len;
-
-  __device__ static Search load(uint8_t* s, const Args& a, int tid, int nt) {
-    uint32_t* thr = reinterpret_cast<uint32_t*>(s);
-    uint8_t* sym = s + 1024;
-    uint8_t* len = s + 1280;
-    for (int i = tid; i < 256; i += nt) {
-      thr[i] = a.thr[i];
-      sym[i] = a.sym[i];
-      len[i] = a.len[i];
-    }
-    return {thr, sym, len};
-  }
-
-  // the largest idx with thr[idx] <= window (0 if none): thr ascends
-  __device__ __forceinline__ void resolve(uint32_t window, uint32_t& s,
-                                          uint32_t& l) const {
-    int idx = 0;
-#pragma unroll
-    for (int step = 128; step >= 1; step >>= 1) {
-      idx += (thr[idx + step] <= window) ? step : 0;
-    }
-    s = sym[idx];
-    l = len[idx];
-  }
-};
-
-// kGlobalRows: the route of rows too wide for shared memory
-// (decode_common.cuh)
-template <bool kGlobalRows>
+// kRoute: rows staged in shared memory, or the global-rows route
+// (decode_common.cuh, decode_split.cuh)
+template <tpuhuff_decode::Route kRoute>
 __global__ void __launch_bounds__(tpuhuff_decode::kMaxThreads)
 decode_rows_general_kernel(Params p, Search::Args a) {
-  tpuhuff_decode::decode_tiles<Search, kGlobalRows>(p, a);
+  tpuhuff_decode::decode_body<Search, kRoute>(p, a);
 }
 
 }  // namespace
@@ -99,7 +70,7 @@ extern "C" int tpuhuff_decode_rows_general(const void* rows, const void* bit0,
                        static_cast<const uint8_t*>(sym),
                        static_cast<const uint8_t*>(len)};
   return tpuhuff_decode::launch<Search::Args>(
-      decode_rows_general_kernel<false>, decode_rows_general_kernel<true>, p,
+      decode_rows_general_kernel<kStaged>, decode_rows_general_kernel<kGlobalRows>, p,
       a, Search::kSmemBytes, global_rows, static_cast<cudaStream_t>(stream));
 }
 
@@ -107,6 +78,6 @@ extern "C" int tpuhuff_decode_rows_general(const void* rows, const void* bit0,
 // shared memory; 0: the global-rows route.
 extern "C" int tpuhuff_decode_rows_general_tile(int B, int W, int block_len) {
   return tpuhuff_decode::tile_rows<Search::Args>(
-      decode_rows_general_kernel<false>, decode_rows_general_kernel<true>,
+      decode_rows_general_kernel<kStaged>, decode_rows_general_kernel<kGlobalRows>,
       Search::kSmemBytes, B, W, block_len);
 }

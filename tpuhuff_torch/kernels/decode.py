@@ -20,9 +20,11 @@ arithmetic, so both packages feed their kernels identical operands.
 
 Both kernels first look the window's top ``LUT_BITS`` bits up in a
 first-level table, ``lut`` (:func:`first_level_table`, built here on the
-host), and run their own rule above only where an entry escapes.  A row
-too wide to be staged in shared memory (:func:`decode_tile_rows` 0) takes
-the kernels' global-rows route, which reads it from device memory; the
+host), and run their own rule above only where an entry escapes.  Rows of
+which shared memory holds fewer than 32 (:func:`decode_tile_rows` 0) take
+the kernels' global-rows route, which reads them from device memory with
+one thread block per block, the block's bits split across its threads into
+subsequences that synchronise themselves (``csrc/decode_split.cuh``); the
 launch reports the route it took, and such launches are also counted in
 ``<wrapper>.global_launches``.
 """
@@ -62,7 +64,7 @@ _U32 = 0xFFFFFFFF
 # k of the first-level table: 2^k entries of 16 bits in each thread block's
 # shared memory.  14 covers every code of the main input's trees, so none
 # escapes (experiments/decode_lut_sweep.py).  The kernels' own k is
-# TPUHUFF_DECODE_LUT_BITS in csrc/decode_common.cuh, the same number.
+# TPUHUFF_DECODE_LUT_BITS in csrc/decode_split.cuh, the same number.
 LUT_BITS = 14
 
 
@@ -475,8 +477,8 @@ def decode_tile_rows(B: int, W: int, block_len: int, general: bool,
                      device="cuda") -> int:
     """Huffman blocks per thread block that :func:`decode_rows` (or, with
     ``general``, :func:`decode_rows_general`) stages through shared memory
-    on ``device`` for B rows of W words; 0 if one row does not fit there,
-    and the launch then takes the global-rows route."""
+    on ``device`` for B rows of W words; 0 where the launch takes the
+    global-rows route (fewer than 32 rows fit there)."""
     name = ("tpuhuff_decode_rows_general_tile" if general
             else "tpuhuff_decode_rows_tile")
     with torch.cuda.device(torch.device(device)):
