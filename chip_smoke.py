@@ -33,7 +33,11 @@ Phases (any failure exits non-zero and prints no result line):
    per Huffman block, split into self-synchronising subsequences), and on
    16 blocks of 65536 codes of 25-32 bits (the shape of a phase-7b launch
    on that route, timed there, also alone); histograms (K3) from 1 B to
-   100 MiB.  The decoders' first-level table size k, rows per thread block n and
+   100 MiB of each of ``HIST_KINDS`` (textlike, uniform random, runs of
+   0x00 and of 0xff, geometric) at three starts, and added into running
+   counts (``out=``) over 15 MiB pieces; K3 timed on 64 MiB of each kind
+   (card, alone, the wrapper's host time per call, ``torch.bincount``, the
+   bound) beside its launch's grid.  The decoders' first-level table size k, rows per thread block n and
    the share of the main input's symbols that escape the table; kernel,
    plain and library-call times at the main path's shapes, and K1 and K5 at
    lanes of 8 bytes; for every kernel also a second reading, the device's
@@ -42,7 +46,12 @@ Phases (any failure exits non-zero and prints no result line):
 4. the main paths, ``tpuhuff_torch.io`` on the device, each run with every
    launch count set to 0 just before it and read just after:
    (a) canonical containers of 100 MiB of textlike data (seed 42), a
-   16 MiB uniform-random file and the ~15 MB Fibonacci file: K1, K2, K3;
+   16 MiB uniform-random file and the ~15 MB Fibonacci file: K1, K2, K3,
+   K3 exactly once per piece of pass 1; then the textlike file in 16 MiB
+   chunks under ``torch.profiler`` in a child process, whose trace must
+   show pass 1 as one
+   ``hist256_kernel`` per piece, at most the fill of its counts, and no
+   add;
    (b) ``canonical=False`` containers of the textlike and Fibonacci files,
    and of the Fibonacci file under a non-canonical 32-bit tree: K4 and no
    K2 where the tree is not canonical.  Each container must have the
@@ -398,6 +407,61 @@ def phase6_cli(work: str, dev, card: str, reset, read, np) -> None:
     shutil.rmtree(d)
 
 
+def pass1_pieces(src: str, chunk_bytes: int | None = None) -> int:
+    """The pieces pass 1 of the ``.hf2`` writer reads ``src`` in."""
+    from tpuhuff_torch.io.host import _PASS1_PIECE, _chunk_step
+
+    piece = min(_chunk_step(LANE, chunk_bytes, True)[0], _PASS1_PIECE)
+    return -(-os.path.getsize(src) // piece)
+
+
+def pass1_trace(work: str) -> None:
+    """Phase 4a's trace: the textlike file through the ``.hf2`` writer in
+    16 MiB chunks under ``torch.profiler``, in a child process of its own
+    (a second profiler session in one process loses CUDA events, and phase
+    6f holds one).  Pass 1's kernels are those that start before the first
+    device-to-host copy (its counts' transfer): one K3 per piece, at most
+    the fill that zeroes the counts once, and no add."""
+    from tpuhuff_torch.profiling import TRACE_FILE
+
+    src = os.path.join(work, "textlike.bin")
+    dst, trace_dir = f"{src}.pass1.hf2", os.path.join(work, "pass1_trace")
+    env = dict(os.environ, TPUHUFF_REPO=os.path.dirname(os.path.abspath(__file__)),
+               SRC=src, DST=dst, TRACE_DIR=trace_dir)
+    env.pop("PYTHONPATH", None)
+    try:
+        child = subprocess.run([sys.executable, "-c", _PASS1_CHILD], env=env,
+                               capture_output=True, text=True, timeout=600)
+    except subprocess.TimeoutExpired:
+        fail("4a: the traced child timed out")
+    if child.returncode != 0:
+        fail(f"4a: the traced child exited {child.returncode}:\n"
+             f"{child.stdout[-2000:]}{child.stderr[-2000:]}")
+    with open(os.path.join(trace_dir, TRACE_FILE)) as fp:
+        events = json.load(fp)["traceEvents"]
+    shutil.rmtree(trace_dir)
+    d2h = [e["ts"] for e in events
+           if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")]
+    if not d2h:
+        fail(f"4a: no device-to-host copy in the trace; categories "
+             f"{sorted({str(e.get('cat')) for e in events})}")
+    names = [e["name"] for e in sorted(events, key=lambda e: e.get("ts", 0))
+             if e.get("cat") == "kernel" and e["ts"] < min(d2h)]
+    hist = sum("hist256_kernel" in n for n in names)
+    others = [n for n in names if "hist256_kernel" not in n]
+    pieces = pass1_pieces(src, 16 << 20)
+    if hist != pieces or len(others) > 1 or any("Fill" not in n
+                                                for n in others):
+        fail(f"4a: pass 1's kernels are not one K3 per piece ({pieces}) and "
+             f"at most the counts' fill: {names}")
+    if sha(dst) != sha(f"{src}.canonical.ref.hf2"):
+        fail("4a: the traced container differs from the host writer's")
+    os.remove(dst)
+    log(f"phase 4a: traced pass 1 in 16 MiB chunks: {hist} hist256_kernel "
+        f"for {pieces} pieces, beside them only {[n[:60] for n in others]}; "
+        f"the container equals the host writer's")
+
+
 def make_config3(n: int, np, seed: int = 3):
     """Config 3's mixed binary corpus from the seed: a third textlike, a
     third uniform random bytes and a third drawn from a geometric law
@@ -407,15 +471,41 @@ def make_config3(n: int, np, seed: int = 3):
     out = np.empty(n, dtype=np.uint8)
     out[:third] = make_textlike(third, np, seed=seed)
     out[third: 2 * third] = rng.integers(0, 256, third, dtype=np.uint8)
-    # the geometric law by its inverse CDF at 16-bit resolution, so the
-    # draws stay 16-bit: P(byte >= k) = 0.98^k, capped at 255
+    out[2 * third:] = make_geometric(n - 2 * third, np, rng)
+    return out
+
+
+def make_geometric(n: int, np, rng):
+    """n bytes of the geometric law P(byte >= k) = 0.98^k, capped at 255,
+    drawn by its inverse CDF at 16-bit resolution (so the draws stay
+    16-bit), in 64 MiB pieces."""
     u = (np.arange(1 << 16) + 0.5) / (1 << 16)
     lut = np.minimum(np.floor(np.log1p(-u) / np.log1p(-0.02)), 255
                      ).astype(np.uint8)
-    for lo in range(2 * third, n, 64 << 20):
+    out = np.empty(n, dtype=np.uint8)
+    for lo in range(0, n, 64 << 20):
         hi = min(lo + (64 << 20), n)
         out[lo:hi] = lut[rng.integers(0, 1 << 16, hi - lo, dtype=np.uint16)]
     return out
+
+
+# K3's inputs: its time must not depend on them
+HIST_KINDS = ("textlike", "uniform", "run of 0x00", "run of 0xff",
+              "geometric")
+
+
+def make_hist_input(kind: str, n: int, np, seed: int = 0):
+    """n bytes of one of HIST_KINDS, from the seed."""
+    rng = np.random.default_rng(seed)
+    if kind == "textlike":
+        return make_textlike(n, np, seed=seed)
+    if kind == "uniform":
+        return rng.integers(0, 256, n, dtype=np.uint8)
+    if kind == "geometric":
+        return make_geometric(n, np, rng)
+    if kind in ("run of 0x00", "run of 0xff"):
+        return np.full(n, 0 if kind == "run of 0x00" else 255, dtype=np.uint8)
+    raise ValueError(f"unknown input kind {kind!r}")
 
 
 def wide_code_blocks(np, n_blocks: int, block_len: int = 65536,
@@ -608,6 +698,16 @@ def phase7_mesh(dev, card: str, reset, read, np, torch) -> dict:
     return launches
 
 
+_PASS1_CHILD = r"""
+import os, sys
+sys.path.insert(0, os.environ["TPUHUFF_REPO"])
+from tpuhuff_torch.io import read_compress_write_hf2
+from tpuhuff_torch.profiling import device_trace
+with device_trace(os.environ["TRACE_DIR"]):
+    read_compress_write_hf2(os.environ["SRC"], os.environ["DST"],
+                            device="cuda", chunk_bytes=16 << 20)
+"""
+
 _CHILD = r"""
 import json, os, sys, time
 sys.path.insert(0, os.environ["TPUHUFF_REPO"])
@@ -756,6 +856,7 @@ def main() -> None:
         encode_blocks,
         encode_blocks_reference,
         histogram,
+        histogram_grid,
         histogram_reference,
         make_canonical_decode_tables,
         make_decode_tables,
@@ -1113,15 +1214,27 @@ def main() -> None:
                     f"k {LUT_BITS}, n {n} blocks per thread block, err {err}")
 
     text_dev = torch.from_numpy(text).to(dev)
-    for n in (1, 15, 4097, (1 << 20) + 3, MAIN_MB << 20):
-        for off in (0, 3):
-            view = text_dev[off: off + n]
-            h = histogram(view)
-            hp = histogram_reference(view)
-            torch.cuda.synchronize()
-            errs["histogram"] = max(errs["histogram"], max_err(torch, h, hp))
-    log(f"phase 3: histogram over 1 B .. {MAIN_MB} MiB, max err "
-        f"{errs['histogram']}")
+    hist_inputs = {kind: text_dev if kind == "textlike" else torch.from_numpy(
+        make_hist_input(kind, MAIN_MB << 20, np, seed=11)).to(dev)
+        for kind in HIST_KINDS}
+    for kind, data in hist_inputs.items():
+        for n in (1, 15, 4097, (1 << 20) + 3, 64 << 20, MAIN_MB << 20):
+            for off in (0, 3, 13):
+                view = data[off: off + n]
+                h = histogram(view)
+                hp = histogram_reference(view)
+                torch.cuda.synchronize()
+                errs["histogram"] = max(errs["histogram"],
+                                        max_err(torch, h, hp))
+        # added into running counts over pieces, as pass 1 does
+        acc = torch.full((256,), 7, dtype=torch.int64, device=dev)
+        for lo in range(0, data.numel(), (15 << 20) + 5):
+            histogram(data[lo: lo + (15 << 20) + 5], out=acc)
+        errs["histogram"] = max(errs["histogram"], max_err(
+            torch, acc - 7, histogram_reference(data)))
+    log(f"phase 3: histogram over 1 B .. {MAIN_MB} MiB of {HIST_KINDS}, "
+        f"starts 0, 3 and 13 bytes past a 16-byte boundary, and into running "
+        f"counts over 15 MiB pieces: max err {errs['histogram']}")
     if any(errs.values()):
         fail(f"kernels disagree with their plain versions: {errs}")
 
@@ -1153,6 +1266,7 @@ def main() -> None:
         f"and {n4} (K4) blocks per thread block at W {rows.shape[1]}, "
         f"block_len {LANE}")
     hist_chunk = text_dev[: 64 << 20]
+    hist_acc = torch.zeros(256, dtype=torch.int64, device=dev)
     timing = {  # (kernel ms, plain ms, library ms or None)
         "encode": (cuda_ms(torch, lambda: encode_blocks(
                        s["lanes"], s["valid"], s["etab"])),
@@ -1177,8 +1291,11 @@ def main() -> None:
             cuda_ms(torch, lambda: decode_rows_general_reference(
                 s["grows"], s["bit0"], s["gnbits"], s["gtab"], LANE), reps=2),
             None),
-        "histogram": (cuda_ms(torch, lambda: histogram(hist_chunk)),
-                      cuda_ms(torch, lambda: histogram_reference(hist_chunk)),
+        # as pass 1 calls it: adding into running counts
+        "histogram": (cuda_ms(torch, lambda: histogram(hist_chunk,
+                                                       out=hist_acc)),
+                      cuda_ms(torch, lambda: histogram_reference(
+                          hist_chunk, out=hist_acc)),
                       cuda_ms(torch, lambda: torch.bincount(hist_chunk,
                                                             minlength=256))),
     }
@@ -1198,7 +1315,7 @@ def main() -> None:
                           + 8 * main_lanes + nbytes(s["gtab"].thr,
                                                     s["gtab"].sym,
                                                     s["gtab"].len) + out_b,
-        "histogram": hist_chunk.numel() + 256 * 8,
+        "histogram": hist_chunk.numel() + 2 * 256 * 8,  # counts in and out
     }
     bound = {k: b / HBM_BYTES_PER_MS for k, b in moved.items()}
     for k, (ms, plain_ms, lib_ms) in timing.items():
@@ -1229,12 +1346,25 @@ def main() -> None:
     log(f"phase 3: encode at lanes of 8 B ({lanes8.shape[0]} lanes, {R8} "
         f"words each): K1 {k1_8:.4f} ms, K5 (operand the lanes) {k5_8:.4f} "
         f"ms, bound {bound8:.4f} ms [{card}]")
+    # K3 on 64 MiB of each input kind: its time must not depend on them
+    grid, per_sm = histogram_grid(64 << 20, dev)
+    log(f"phase 3: histogram launch over 64 MiB: {grid} thread blocks, "
+        f"{per_sm} to an SM")
+    for kind, data in hist_inputs.items():
+        chunk = data[: 64 << 20]
+        ms = cuda_ms(torch, lambda: histogram(chunk, out=hist_acc))
+        alone_ms, host = spin_ms(torch, lambda: histogram(chunk, out=hist_acc))
+        lib_ms = cuda_ms(torch, lambda: torch.bincount(chunk, minlength=256))
+        log(f"phase 3: K3 on 64 MiB of {kind}: card {ms:.4f} ms, alone "
+            f"{alone_ms:.4f} ms, the wrapper's host time per call {host:.4f} "
+            f"ms, torch.bincount {lib_ms:.4f} ms, bound "
+            f"{bound['histogram']:.4f} ms [{card}]")
+    del hist_inputs, chunk, data
     # every kernel's second reading: the device's time alone, beside the
     # wrapper's host time per call (the times above hold the larger)
     alone = {
         "K2": lambda: decode_rows(s["rows"], s["bit0"], s["nbits"],
                                   s["dtab"], LANE),
-        "K3": lambda: histogram(hist_chunk),
         "K4": lambda: decode_rows_general(s["grows"], s["bit0"], s["gnbits"],
                                           s["gtab"], LANE),
         "K1": lambda: encode_blocks(s["lanes"], s["valid"], s["etab"]),
@@ -1360,6 +1490,13 @@ def main() -> None:
         log(f"phase 4a: launches during the canonical path: {launches}")
         if not all(launches[k] for k in ("encode", "decode", "histogram")):
             fail(f"a kernel of the canonical path never launched: {launches}")
+        pieces = sum(pass1_pieces(os.path.join(work, f"{name}.bin"))
+                     for name in ("textlike", "random", "fib"))
+        if launches["histogram"] != pieces:
+            fail(f"4a: pass 1 launched K3 {launches['histogram']} times for "
+                 f"{pieces} pieces")
+        log(f"phase 4a: pass 1 launched K3 once per piece ({pieces} pieces)")
+        pass1_trace(work)
         # (b) non-canonical containers: K4.  The Fibonacci file's own tree
         # is length-limited, hence canonical by construction, so its
         # canonical=False container decodes with K2; under its mirrored

@@ -30,6 +30,7 @@ from tpuhuff_torch.kernels import (
     payload_to_lane_words,
 )
 
+from chip_smoke import HIST_KINDS, make_hist_input
 from test_torch_decode_split import CASES, split_case
 
 pytestmark = pytest.mark.cuda
@@ -211,6 +212,44 @@ def test_histogram_kernel_matches_plain(dev, n):
         got = histogram(view)
         torch.cuda.synchronize()
         assert torch.equal(got, histogram_reference(view))
+
+
+@pytest.mark.parametrize("n", [17, (1 << 20) + 3, (64 << 20) - 1, 256 << 20])
+@pytest.mark.parametrize("kind", HIST_KINDS)
+def test_histogram_kernel_on_every_input_kind(dev, kind, n):
+    """K3 on each input kind, up to 256 MiB (config 3's per-shard launch),
+    at starts 0 to 15 bytes past a 16-byte boundary: exact, one launch per
+    call."""
+    buf = torch.from_numpy(make_hist_input(kind, n + 15, np, seed=n)).to(dev)
+    for off in (range(16) if n < (64 << 20) else (0, 7, 15)):
+        view = buf[off: off + n]
+        before = histogram.launches
+        got = histogram(view)
+        torch.cuda.synchronize()
+        assert histogram.launches == before + 1
+        assert torch.equal(got, histogram_reference(view)), (kind, n, off)
+
+
+@pytest.mark.parametrize("kind", HIST_KINDS)
+def test_histogram_kernel_out_accumulates(dev, kind):
+    """``out=`` over pieces of several sizes and starts equals one call over
+    the whole input; each call is exactly one launch, and a wrong ``out``
+    raises before any launch."""
+    data = torch.from_numpy(make_hist_input(kind, (40 << 20) + 77, np,
+                                            seed=1)).to(dev)
+    cuts = [0, 1, 17, 4096 + 3, (1 << 20) + 5, (24 << 20) + 9, data.numel()]
+    out = torch.full((256,), 5, dtype=torch.int64, device=dev)
+    before = histogram.launches
+    for lo, hi in zip(cuts, cuts[1:]):
+        assert histogram(data[lo:hi], out=out) is out
+    torch.cuda.synchronize()
+    assert histogram.launches == before + len(cuts) - 1
+    assert torch.equal(out - 5, histogram_reference(data))
+    for bad in (torch.zeros(256, dtype=torch.int64),
+                torch.zeros(256, dtype=torch.int32, device=dev)):
+        with pytest.raises((TypeError, ValueError)):
+            histogram(data, out=bad)
+    assert histogram.launches == before + len(cuts) - 1
 
 
 @pytest.mark.parametrize("block_len", [256, 1000])

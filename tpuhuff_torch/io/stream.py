@@ -221,13 +221,14 @@ def read_compress_write_hf2(
     staging = _Staging(dev)
     with open(src_path, "rb") as src, open(dst_path, "wb") as dst:
         if tree is None:
-            # pass 1: device histogram per piece, accumulated on the device
-            # in int64; one 256-count transfer at the end
+            # pass 1: one histogram launch per piece, each adding into the
+            # running int64 counts on the device; one 256-count transfer at
+            # the end
             acc = torch.zeros(256, dtype=torch.int64, device=dev)
             for k, piece in enumerate(_sampled_pieces(src, size, step,
                                                       hist_sample)):
-                acc += histogram(staging.h2d(
-                    np.frombuffer(piece, dtype=np.uint8), ("hist", k % 2)))
+                histogram(staging.h2d(np.frombuffer(piece, dtype=np.uint8),
+                                      ("hist", k % 2)), out=acc)
             counts = acc.cpu().numpy()
             if max(1, int(hist_sample)) > 1 and size > 0:
                 counts = counts + 1  # every byte gets a code

@@ -9,7 +9,8 @@
 * :func:`decode_rows_general` (``csrc/decode_general.cu``) — the same
   decode for any prefix tree (both share ``csrc/decode_common.cuh`` and a
   first-level table of ``2^LUT_BITS`` entries);
-* :func:`histogram` (``csrc/histogram.cu``) — exact 256-bin byte counts.
+* :func:`histogram` (``csrc/histogram.cu`` over ``csrc/histogram_common.cuh``)
+  — exact 256-bin byte counts, added into ``out=`` where given.
 
 A wrapper launches its kernel for CUDA tensors and runs its plain version
 (``*_reference``) for CPU tensors; ``<wrapper>.launches`` counts the kernel
@@ -39,7 +40,7 @@ from .encode import (
     make_encode_tables,
     out_words,
 )
-from .histogram import histogram, histogram_reference
+from .histogram import histogram, histogram_grid, histogram_reference
 
 __all__ = [
     "LUT_BITS",
@@ -57,6 +58,7 @@ __all__ = [
     "encode_blocks_reference",
     "first_level_table",
     "histogram",
+    "histogram_grid",
     "histogram_reference",
     "make_canonical_decode_tables",
     "make_decode_tables",

@@ -57,10 +57,13 @@ _SIGNATURES = {
     "tpuhuff_decode_rows_general_tile": [_I, _I, _I],
     # data, n, out, stream
     "tpuhuff_hist256": [_P, _L, _P, _P],
+    # n, per_sm (int*, out) (a query: no stream)
+    "tpuhuff_hist256_grid": [_L, _P],
 }
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_fns: dict = {}  # launch()'s C functions by name
 build_seconds: float | None = None  # wall time of the build this process ran
 
 
@@ -166,9 +169,15 @@ def launch(name: str, device: torch.device, *args) -> None:
     stream of ``device``, with ``device`` current; raise if it reports a
     CUDA error (a refused launch never runs, and a later synchronize would
     not report it)."""
-    with torch.cuda.device(device):
-        err = getattr(lib(), name)(*args,
-                                   torch.cuda.current_stream(device).cuda_stream)
+    fn = _fns.get(name)
+    if fn is None:
+        fn = _fns[name] = getattr(lib(), name)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
     if err != 0:
         text = lib().tpuhuff_error_string(err).decode(errors="replace")
         raise RuntimeError(f"{name}: CUDA error {err} ({text})")
