@@ -64,6 +64,15 @@ Phases (any failure exits non-zero and prints no result line):
    tree, every shard restored, adaptive ratio below the stale tree's;
    (d) a 16 MiB uniform-random ``.hf2`` with ``block_len=1000`` (8-byte
    lanes, the TPU's K6 route), SHA-equal to the host writer and restored;
+   (e) the first 64 MiB of the textlike file as 262,144 lanes of 256 B on
+   the card, under (a)'s canonical tree and under a tree without the
+   chunk's three rarest letters: ``kernels.block_bit_lengths`` equal to
+   K1's ``bits`` lane by lane, to its result on CPU tensors and, as
+   uint32, to its result on the tree's uint8 LUT,
+   ``kernels.count_missing`` equal to K1's summed ``miss``, to its result
+   on CPU tensors and to the count the histogram gives (0, then > 0), and
+   ``kernels.words_to_payload`` of 16 of K1's lanes equal to each lane's
+   stitched bytes and to the host encoder's; both timed beside K1;
 5. wall-clock rates of port compress and decompress (canonical and not)
    and of dataset compress (shared and adaptive) beside the host C++
    writers and reader, and a device-to-device copy;
@@ -460,6 +469,89 @@ def pass1_trace(work: str) -> None:
     log(f"phase 4a: traced pass 1 in 16 MiB chunks: {hist} hist256_kernel "
         f"for {pieces} pieces, beside them only {[n[:60] for n in others]}; "
         f"the container equals the host writer's")
+
+
+def phase4e_guards(work: str, dev, card: str, np, torch, mb: int = 64) -> None:
+    """``count_missing``, ``block_bit_lengths`` and ``words_to_payload`` at
+    the main path's shapes, held against K1 on the same lanes and against
+    their own results on CPU tensors."""
+    from tpuhuff_torch import native
+    from tpuhuff_torch.core.canonical import build_tree_for_device, canonicalize
+    from tpuhuff_torch.core.weights import ByteWeights
+    from tpuhuff_torch.dist import stitch_words
+    from tpuhuff_torch.io.hff import read_hf2_header
+    from tpuhuff_torch.kernels import (
+        block_bit_lengths,
+        count_missing,
+        encode_blocks,
+        make_encode_tables,
+        words_to_payload,
+    )
+    from tpuhuff_torch.kernels.encode import as_u32
+
+    src = os.path.join(work, "textlike.bin")
+    with open(src + ".canonical.hf2", "rb") as fp:
+        tree = read_hf2_header(fp).tree  # phase 4a's canonical tree
+    n_lanes = (mb << 20) // LANE  # the main path's first 64 MiB chunk
+    chunk = np.fromfile(src, dtype=np.uint8, count=n_lanes * LANE)
+    lanes_cpu = torch.from_numpy(chunk.reshape(n_lanes, LANE))
+    lanes = lanes_cpu.to(dev)
+    valid = torch.full((n_lanes,), LANE, dtype=torch.int32, device=dev)
+    counts = np.bincount(chunk, minlength=256)
+    held = np.flatnonzero(counts)
+    gone = held[np.argsort(counts[held], kind="stable")[:3]]
+    part = counts.copy()
+    part[gone] = 0
+    trees = {"full": (tree, 0),
+             f"without letters {gone.tolist()}": (
+                 canonicalize(build_tree_for_device(ByteWeights(part), 32)[0]),
+                 int(counts[gone].sum()))}
+    for name, (t, want_miss) in trees.items():
+        lens_lut, codes_lut = t.encode_tables()
+        etab = make_encode_tables(lens_lut, codes_lut).to(dev)
+        words, bits, miss = encode_blocks(lanes, valid, etab)
+        got = block_bit_lengths(lanes, etab.lens)
+        got_cpu = block_bit_lengths(lanes_cpu, etab.lens.cpu())
+        if got.device != lanes.device or got.dtype != got_cpu.dtype:
+            fail(f"4e {name}: block_bit_lengths on {got.device}, {got.dtype}")
+        if not torch.equal(got.long(), bits.long()):
+            fail(f"4e {name}: block_bit_lengths differs from K1's bits")
+        if not torch.equal(got.cpu(), got_cpu):
+            fail(f"4e {name}: block_bit_lengths differs on CPU tensors")
+        # the tree's own uint8 LUT: a uint32 result, as the JAX function's
+        got_u = block_bit_lengths(lanes, torch.from_numpy(lens_lut).to(dev))
+        if got_u.dtype != torch.uint32 or not torch.equal(
+                got_u.view(torch.int32), got):
+            fail(f"4e {name}: block_bit_lengths of the uint8 LUT differs")
+        n_miss = count_missing(lanes, etab.lens, valid)
+        n_miss_cpu = count_missing(lanes_cpu, etab.lens.cpu(), valid.cpu())
+        k1_miss = int(miss.sum())
+        if not n_miss == n_miss_cpu == k1_miss == want_miss:
+            fail(f"4e {name}: count_missing {n_miss} (CPU {n_miss_cpu}), K1 "
+                 f"{k1_miss}, histogram {want_miss}")
+        log(f"phase 4e: {name} tree: block_bit_lengths == K1's bits on "
+            f"{n_lanes} lanes ({int(bits.long().sum())} bits) and == its CPU "
+            f"result; count_missing {n_miss} == K1's miss == CPU == histogram")
+        if name != "full":
+            continue
+        host_words, host_bits = as_u32(words), bits.cpu().numpy()
+        for k in np.linspace(0, n_lanes - 1, 16).astype(np.int64):
+            payload = words_to_payload(words[k], int(bits[k]))
+            stitched, _ = stitch_words(host_words[k : k + 1],
+                                       host_bits[k : k + 1])
+            encoded, _ = native.encode(chunk[k * LANE : (k + 1) * LANE],
+                                       lens_lut, codes_lut)
+            if not payload == stitched == encoded:
+                fail(f"4e: words_to_payload of lane {k} differs")
+        log("phase 4e: words_to_payload of 16 lanes == each lane's stitched "
+            "bytes == the host encoder's")
+        k1_ms = cuda_ms(torch, lambda: encode_blocks(lanes, valid, etab))
+        cm_ms = cuda_ms(torch, lambda: count_missing(lanes, etab.lens, valid))
+        bb_ms = cuda_ms(torch, lambda: block_bit_lengths(lanes, etab.lens))
+        log(f"phase 4e: at {n_lanes} lanes of {LANE} B: count_missing "
+            f"{cm_ms:.4f} ms, block_bit_lengths {bb_ms:.4f} ms, K1 {k1_ms:.4f} "
+            f"ms (cuda_ms; the lanes read once at 3.35 TB/s: "
+            f"{lanes.numel() / HBM_BYTES_PER_MS:.4f} ms) [{card}]")
 
 
 def make_config3(n: int, np, seed: int = 3):
@@ -1613,6 +1705,8 @@ def main() -> None:
         log(f"phase 4d: block_len 1000 (lanes of 8 B): launches {counts}")
         if not counts["encode"]:
             fail("4d: K1 never launched at 8-byte lanes")
+        # (e) the missing-letter count and the block bit lengths beside K1
+        phase4e_guards(work, dev, card, np, torch)
 
         # -- phase 5: rates --------------------------------------------------
         src = os.path.join(work, "textlike.bin")

@@ -40,6 +40,7 @@ from ..core.weights import ByteWeights
 from ..io.host import DEVICE_HF2_BLOCK
 from ..kernels import (
     EncodeTables,
+    count_missing,
     decoder_for,
     encode_blocks,
     histogram,
@@ -130,23 +131,16 @@ def sharded_histogram(blocks, valid_lens, mesh: Mesh,
     return _histogram(_place(blocks, valid_lens, mesh), group)
 
 
-def _missing(shards, lens: np.ndarray, mesh: Mesh) -> int:
-    counts = []
-    on_dev = _on_each(mesh, torch.from_numpy(lens.astype(np.int64)).to)
-    for (blocks, valid), dev_lens in zip(shards, on_dev):
-        N = blocks.shape[1]
-        live = torch.arange(N, device=blocks.device)[None, :] < valid[:, None]
-        counts.append((live & (dev_lens[blocks.long()] == 0)).sum())
-    return int(sum(c.cpu() for c in counts))
+def _missing(shards, lens_lut) -> int:
+    return sum(count_missing(blocks, lens_lut, valid) for blocks, valid in shards)
 
 
 def sharded_count_missing(blocks, valid_lens, lens_lut, mesh: Mesh) -> int:
     """Global count of valid bytes with no code (length 0 in
     ``lens_lut``) over the mesh: the guard of the missing-letter case
-    (``comp.rs:427-432``)."""
-    lens = np.asarray(lens_lut.cpu() if isinstance(lens_lut, torch.Tensor)
-                      else lens_lut).reshape(256)
-    return _missing(_place(blocks, valid_lens, mesh), lens, mesh)
+    (``comp.rs:427-432``), :func:`~tpuhuff_torch.kernels.count_missing`
+    on each shard's device."""
+    return _missing(_place(blocks, valid_lens, mesh), lens_lut)
 
 
 def lane_of(block_len: int) -> int:

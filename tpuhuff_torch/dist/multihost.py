@@ -331,7 +331,15 @@ def decompress_file_multihost(
     block per device thread) and one-letter trees take the
     host route whatever ``device`` says.  ``check`` verifies each CRC span
     that lies whole in this process's share (a span split between two
-    processes is left to a whole-file decode)."""
+    processes is left to a whole-file decode).
+
+    The host route also raises where the JAX function's DFA would leave
+    its buffers: on a payload shorter than the block table says
+    (``MissingHeaderInfo``), on a share whose last block would have a
+    negative length, and, after the CRC check, on a block that decodes to
+    fewer bytes than its slot (``InvalidHeaderInfo``).  A process that
+    raises after the first barrier leaves its peers waiting at the second,
+    as in the JAX function."""
     from .. import native
     from ..io.hff import read_hf2_header
     from ..io.host import StreamError
@@ -370,6 +378,7 @@ def decompress_file_multihost(
         rel_ends = ends[lo_b:hi_b] - byte_lo * 8
         out_lo = lo_b * hdr.block_len
         out_len = min(hdr.orig_len, hi_b * hdr.block_len) - out_lo
+        short = False
         if hdr.tree.is_leaf(hdr.tree.root):
             out_bytes = bytes([int(hdr.tree.letters[hdr.tree.root])]) * out_len
         elif not on_host:
@@ -385,18 +394,33 @@ def decompress_file_multihost(
                 tables.to(dev), hdr.block_len)
             out_bytes = out_arr.cpu().numpy().reshape(-1)[:out_len].tobytes()
         else:
-            tables = native.build_dfa(hdr.tree)
+            # the DFA reads its bits from `payload` and writes each block
+            # into its slot unchecked: a short read or a negative last slot
+            # would take it past its buffers
+            if len(payload) < byte_hi - byte_lo:
+                raise StreamError(f"{src_path!r} truncated payload",
+                                  "MissingHeaderInfo")
             nb = hi_b - lo_b
+            last = out_len - (nb - 1) * hdr.block_len
+            if last < 0:
+                raise StreamError(f"{src_path!r} stores invalid header "
+                                  "information", "InvalidHeaderInfo")
+            tables = native.build_dfa(hdr.tree)
             caps = np.full(nb, hdr.block_len, dtype=np.uint64)
-            caps[-1] = out_len - (nb - 1) * hdr.block_len
+            caps[-1] = last
             offs = np.arange(nb, dtype=np.uint64) * hdr.block_len
-            out_buf, _ = native.decode_blocks(
+            out_buf, out_lens = native.decode_blocks(
                 np.frombuffer(payload, dtype=np.uint8),
                 rel_starts.astype(np.uint64), rel_ends.astype(np.uint64),
                 tables, offs, caps, threads)
             out_bytes = out_buf[:out_len].tobytes()
+            short = not np.array_equal(out_lens, caps)
         if check and hdr.crcs is not None and hdr.crc_every and out_len > 0:
             _check_spans(hdr, lo_b, hi_b, out_lo, out_bytes, src_path)
+        if short:
+            # a block that decoded short left its slot's tail unwritten
+            raise StreamError(f"{src_path!r} block decode length mismatch",
+                              "InvalidHeaderInfo")
         fd = os.open(dst_path, os.O_WRONLY)
         try:
             os.pwrite(fd, out_bytes, out_lo)

@@ -12,6 +12,10 @@
 * :func:`histogram` (``csrc/histogram.cu`` over ``csrc/histogram_common.cuh``)
   — exact 256-bin byte counts, added into ``out=`` where given.
 
+:func:`count_missing` and :func:`block_bit_lengths` are a LUT gather and a
+sum in PyTorch on the data's device (XLA, not Pallas, in the JAX package);
+:func:`words_to_payload` is a host helper.
+
 A wrapper launches its kernel for CUDA tensors and runs its plain version
 (``*_reference``) for CPU tensors; ``<wrapper>.launches`` counts the kernel
 launches.  The kernels are compiled at first use, never at import.
@@ -35,10 +39,13 @@ from .decode import (
 )
 from .encode import (
     EncodeTables,
+    block_bit_lengths,
+    count_missing,
     encode_blocks,
     encode_blocks_reference,
     make_encode_tables,
     out_words,
+    words_to_payload,
 )
 from .histogram import histogram, histogram_grid, histogram_reference
 
@@ -47,6 +54,8 @@ __all__ = [
     "DecodeTables",
     "EncodeTables",
     "GeneralDecodeTables",
+    "block_bit_lengths",
+    "count_missing",
     "decode_hf2_device",
     "decode_rows",
     "decode_rows_general",
@@ -65,4 +74,5 @@ __all__ = [
     "make_encode_tables",
     "out_words",
     "payload_to_lane_words",
+    "words_to_payload",
 ]

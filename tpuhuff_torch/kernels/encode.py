@@ -30,6 +30,9 @@ __all__ = [
     "out_words",
     "encode_blocks",
     "encode_blocks_reference",
+    "count_missing",
+    "block_bit_lengths",
+    "words_to_payload",
 ]
 
 _U32 = 0xFFFFFFFF
@@ -212,3 +215,55 @@ def encode_blocks_reference(lanes: torch.Tensor, valid_lens: torch.Tensor,
         return out
     return (*out, torch.bincount(hist_data.reshape(-1), minlength=256))
 
+
+def _lens_lut(lens_lut, device) -> tuple[torch.Tensor, torch.dtype]:
+    """A 256-entry code-length LUT (tensor or array) as int64 on
+    ``device``, and the dtype of its sum in the JAX package (x64 off):
+    uint32 for an unsigned LUT, else int32."""
+    if not isinstance(lens_lut, torch.Tensor):
+        lens_lut = torch.from_numpy(np.ascontiguousarray(lens_lut))
+    unsigned = lens_lut.dtype in (torch.uint8, torch.uint16, torch.uint32,
+                                  torch.uint64)
+    return (lens_lut.reshape(256).to(device=device, dtype=torch.int64),
+            torch.uint32 if unsigned else torch.int32)
+
+
+def count_missing(data: torch.Tensor, lens_lut,
+                  valid_lens: torch.Tensor | None = None) -> int:
+    """Number of valid bytes of ``data`` with no code (length 0 in
+    ``lens_lut``): the device-side guard of the reference's missing-letter
+    ``CompressError`` (``comp.rs:427-432``).
+
+    ``data`` is (B, N) or (N,) uint8 (one block); ``valid_lens`` (B,)
+    counts each block's valid bytes, ``None`` makes every byte valid.
+    The gather and the sum run on ``data``'s device; only the count
+    crosses to the host.  Counterpart of
+    :func:`tpuhuff.kernels.encode.count_missing`."""
+    if data.dim() == 1:
+        data = data[None, :]
+    lens, _ = _lens_lut(lens_lut, data.device)
+    miss = lens[data.long()] == 0
+    if valid_lens is not None:
+        valid = torch.as_tensor(valid_lens).to(data.device).reshape(-1, 1)
+        miss &= torch.arange(data.shape[1], device=data.device) < valid
+    return int(miss.sum())
+
+
+def block_bit_lengths(data: torch.Tensor, lens_lut) -> torch.Tensor:
+    """Exact bit length of each block of (..., N) uint8 ``data``: the sum
+    of ``lens_lut`` over every byte, padding included.  It is computed on
+    ``data``'s device and has the JAX function's dtype (int32, or uint32
+    for an unsigned LUT).  Counterpart of
+    :func:`tpuhuff.kernels.encode.block_bit_lengths`."""
+    lens, dtype = _lens_lut(lens_lut, data.device)
+    return lens[data.long()].sum(dim=-1).to(dtype)
+
+
+def words_to_payload(words, bit_len: int) -> bytes:
+    """One block's payload bytes from its MSB-first u32 words (a numpy
+    array, or a tensor of u32 bit patterns, copied to the host once), cut
+    to ``ceil(bit_len / 8)`` bytes."""
+    if isinstance(words, torch.Tensor):
+        words = words.detach().cpu().numpy()
+    nbytes = (int(bit_len) + 7) // 8
+    return np.asarray(words).astype(">u4").tobytes()[:nbytes]
