@@ -37,7 +37,16 @@ Phases (any failure exits non-zero and prints no result line):
    0x00 and of 0xff, geometric) at three starts, and added into running
    counts (``out=``) over 15 MiB pieces; K3 timed on 64 MiB of each kind
    (card, alone, the wrapper's host time per call, ``torch.bincount``, the
-   bound) beside its launch's grid.  The decoders' first-level table size k, rows per thread block n and
+   bound) beside its launch's grid; the device stitch (S1) on K1's
+   output of the textlike, uniform-random, single-symbol and Fibonacci
+   inputs with ragged and empty lanes behind every carry of 0-7 bits, a
+   chunk of fewer than 8 bits, the host C++ stitch's bytes, and the main
+   chunk as one stitch and as a chain of 5 chunks through the carry left on
+   the card; the device row gather (S2) on that payload (the host gather's
+   rows), one byte off its alignment, and random blocks over payloads of
+   1 B to 1 MiB (their ends read as 0); both timed beside K1 (card, alone,
+   the wrapper's host time per call, plain; S2 also the PyTorch index
+   gather with its byteswap).  The decoders' first-level table size k, rows per thread block n and
    the share of the main input's symbols that escape the table; kernel,
    plain and library-call times at the main path's shapes, and K1 and K5 at
    lanes of 8 bytes; for every kernel also a second reading, the device's
@@ -47,7 +56,10 @@ Phases (any failure exits non-zero and prints no result line):
    launch count set to 0 just before it and read just after:
    (a) canonical containers of 100 MiB of textlike data (seed 42), a
    16 MiB uniform-random file and the ~15 MB Fibonacci file: K1, K2, K3,
-   K3 exactly once per piece of pass 1; then the textlike file in 16 MiB
+   K3 exactly once per piece of pass 1, K1 and S1 once per pass-2 chunk,
+   S2 and K2 once per decode group, and no host stitch, shifting sink
+   write, lane padding or host row gather called on the card's path
+   (there, and in (b)-(d), each such call fails the run); then the textlike file in 16 MiB
    chunks under ``torch.profiler`` in a child process, whose trace must
    show pass 1 as one
    ``hist256_kernel`` per piece, at most the fill of its counts, and no
@@ -112,7 +124,12 @@ Phases (any failure exits non-zero and prints no result line):
    single-process device writer's, every round trip exact, each child's
    launch counts printed on a line of its own.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+Every phase's launch counts include S1 and S2 (``kernels.stitch_lanes``,
+``kernels.lane_rows``): one S1 for each K1 or K5 launch of a device writer,
+one S2 for each decoder launch of the device reader.
+
+The line before the last is ``{"kernels": [...]}`` (the five kernels, the
+decoders' two global-rows routes, ``stitch`` and ``lane_rows``); the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of JAX, and nothing of the JAX
 package, is imported.
 """
@@ -261,7 +278,8 @@ def same_file(a: str, b: str) -> bool:
 
 # the port's kernel names, as a device trace shows them
 KERNEL_NAMES = ("encode_tiles", "decode_rows_kernel",
-                "decode_rows_general_kernel", "hist256_kernel")
+                "decode_rows_general_kernel", "hist256_kernel",
+                "stitch_kernel", "lane_rows_kernel")
 
 
 def phase6_cli(work: str, dev, card: str, reset, read, np) -> None:
@@ -321,8 +339,9 @@ def phase6_cli(work: str, dev, card: str, reset, read, np) -> None:
     if sha(t + ".hf2") != sha(t + ".ref"):
         fail("6a: the CLI's container differs from the host writer's")
     restores(t + ".out", src, "6a")
-    if not (c1["histogram"] and c1["encode"] and c2["decode"]) or (
-            c1["decode_general"] or c2["decode_general"]):
+    if not (c1["histogram"] and c1["encode"] and c1["stitch"] and c2["decode"]
+            and c2["lane_rows"]) or (c1["decode_general"]
+                                     or c2["decode_general"]):
         fail(f"6a: wrong kernels: compress {c1}, decompress {c2}")
     log("phase 6a: container sha256 == host writer's, round trip exact")
 
@@ -330,8 +349,8 @@ def phase6_cli(work: str, dev, card: str, reset, read, np) -> None:
     x = os.path.join(d, "x")
     hff = x + ".hff"
     _, c = run("--device -n (.hff compress)", ["--device", "-n", src, x], size)
-    if not c["encode"]:
-        fail(f"6b: K1 never launched: {c}")
+    if not c["encode"] or c["stitch"] != c["encode"]:
+        fail(f"6b: K1 and S1 did not launch alike: {c}")
     with open(hff, "rb") as fp:
         tree, _, header_len = _read_hff_header(fp, hff)
     payload = os.path.getsize(hff) - header_len
@@ -414,6 +433,265 @@ def phase6_cli(work: str, dev, card: str, reset, read, np) -> None:
     log(f"phase 6f: the trace holds {len(kernels)} CUDA kernel names, of "
         f"which the port's: {ours}")
     shutil.rmtree(d)
+
+
+def phase3_host_stages(dev, card: str, np, torch, cases: dict, tree_of,
+                       errs: dict) -> tuple[dict, dict]:
+    """Phase 3 for the kernels that took the host stages onto the card:
+    the stitch S1 and the row gather S2, each against its plain version on
+    the card, bit-exact, then timed at the main path's shapes beside K1.
+    ``cases`` maps a name to ``(data, tree or None)`` (phase 3's inputs);
+    the errors go into ``errs["stitch"]`` and ``errs["lane_rows"]``.
+    Returns ``(timing, moved)``: per kernel (card ms, plain ms, library ms
+    or None), and the bytes of its bound."""
+    from tpuhuff_torch.dist import stitch_words
+    from tpuhuff_torch.kernels import (
+        _build,
+        encode_blocks,
+        lane_rows,
+        lane_rows_reference,
+        make_encode_tables,
+        new_carry,
+        payload_to_lane_words,
+        stitch_lanes,
+        stitch_lanes_reference,
+    )
+
+    rng = np.random.default_rng(14)
+
+    def k1(data, tree, valid=None):
+        """K1 over ``data`` as LANE-byte lanes: (lanes, valid, etab, words,
+        bits)."""
+        etab = make_encode_tables(*tree.encode_tables()).to(dev)
+        B = data.size // LANE
+        lanes = torch.from_numpy(data[: B * LANE].reshape(B, LANE)).to(dev)
+        if valid is None:
+            valid = torch.full((B,), LANE, dtype=torch.int32, device=dev)
+        words, bits, _ = encode_blocks(lanes, valid, etab)
+        return lanes, valid, etab, words, bits
+
+    def carry_of(n):
+        byte = int(rng.integers(0, 256))  # the bits past n must be ignored
+        return torch.tensor([byte, n], dtype=torch.int32, device=dev)
+
+    def check_s1(name, words, bits, carry):
+        got = stitch_lanes(words, bits, carry)
+        want = stitch_lanes_reference(words, bits, carry)
+        torch.cuda.synchronize()
+        err = max(max_err(torch, g, w) for g, w in zip(got, want))
+        errs["stitch"] = max(errs["stitch"], err)
+        return got, err
+
+    # K1's output of each input, ragged lanes and lanes of no bits, behind
+    # every carry of 0-7 bits
+    for name in ("textlike", "random", "single", "fib"):
+        data, tree = cases[name]
+        tree = tree if tree is not None else tree_of(data)
+        B = data.size // LANE
+        valid = torch.from_numpy(rng.integers(0, LANE + 1, B).astype(
+            np.int32)).to(dev)
+        valid[::9] = 0
+        valid[1::9] = LANE
+        _, _, etab, words, bits = k1(data, tree, valid)
+        err = max(check_s1(name, words, bits, carry_of(n))[1]
+                  for n in range(8))
+        if name == "textlike":  # the host C++ stitch of the same lanes
+            (payload, _), _ = check_s1(name, words, bits, new_carry(dev))
+            want, _ = stitch_words(words.cpu().numpy().view(np.uint32),
+                                   bits.cpu().numpy().astype(np.uint64))
+            if payload[: len(want)].cpu().numpy().tobytes() != want:
+                fail("stitch: the textlike payload differs from the host "
+                     "stitch's")
+        log(f"phase 3: stitch {name}: {B} lanes (ragged, every 9th empty), "
+            f"max code {etab.max_len} bits, carries 0-7: err {err}")
+    # a chunk of fewer than 8 bits: one byte of a short code
+    text, _ = cases["textlike"]
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    _, _, _, w1, b1 = k1(text[:LANE], tree_of(text), one)
+    for n in range(8):
+        (_, out), err = check_s1("short", w1, b1, carry_of(n))
+        if int(b1[0]) >= 8 or int(out[1]) != (n + int(b1[0])) % 8:
+            fail(f"stitch: a chunk of {int(b1[0])} bits behind {n}: {out}")
+    log(f"phase 3: stitch of a chunk of {int(b1[0])} bits behind carries "
+        f"0-7: err {errs['stitch']}")
+    # the main path's chunk, full lanes, and the same lanes as a chain of
+    # 5 chunks (one empty) through the carry left on the card
+    lanes, valid, etab, words, bits = k1(text, tree_of(text))
+    B = words.shape[0]
+    whole, _ = check_s1("main", words, bits, new_carry(dev))
+    total = int(bits.sum())
+    cuts = [0, 1000, 1000, 99_999, 200_000, B]
+    carry, chain, carried = new_carry(dev), [], 0
+    for lo, hi in zip(cuts, cuts[1:]):
+        (payload, carry), _ = check_s1("chain", words[lo:hi], bits[lo:hi],
+                                       carry)
+        got = carried + int(bits[lo:hi].sum())
+        chain.append(payload[: got // 8].cpu())
+        carried = got % 8
+    if carried:
+        chain.append(carry[:1].cpu().to(torch.uint8))
+    if not torch.equal(torch.cat(chain), whole[0][: (total + 7) // 8].cpu()):
+        fail("stitch: the chain of 5 chunks differs from one stitch")
+    log(f"phase 3: stitch of {B} lanes as one chunk == as a chain of 5 "
+        f"(cuts {cuts[1:-1]}): {total} bits, err {errs['stitch']}")
+
+    # S2: the main chunk's payload cut into its blocks' rows (unaligned
+    # starts, the last block at the payload's end), the same payload one
+    # byte off its alignment, and random blocks over payloads of every
+    # length mod 4
+    pay_bytes = (total + 7) // 8
+    pay = whole[0][:pay_bytes]
+    ends = np.cumsum(bits.cpu().numpy().astype(np.int64))
+    starts = ends - bits.cpu().numpy()
+
+    def check_s2(name, payload, starts, ends):
+        got = lane_rows(payload, starts, ends)
+        want = lane_rows_reference(payload, starts, ends)
+        torch.cuda.synchronize()
+        err = max(max_err(torch, g, w) for g, w in zip(got, want))
+        errs["lane_rows"] = max(errs["lane_rows"], err)
+        return got, err
+
+    (rows, bit0), err = check_s2("main", pay, starts, ends)
+    host_rows, host_bit0 = payload_to_lane_words(pay.cpu().numpy(), starts,
+                                                 ends, LANE)
+    if not (np.array_equal(rows.cpu().numpy().view(np.uint32), host_rows)
+            and np.array_equal(bit0.cpu().numpy(), host_bit0)):
+        fail("lane_rows: the main chunk's rows differ from the host gather's")
+    store = torch.zeros(pay_bytes + 1, dtype=torch.uint8, device=dev)
+    store[1:] = pay
+    _, err1 = check_s2("unaligned", store[1:], starts, ends)
+    for n in (1, 2, 3, 4, 4097, 4098, 4099, 1 << 20):
+        payload = torch.from_numpy(rng.integers(0, 256, n, dtype=np.uint8)
+                                   ).to(dev)
+        cut = np.sort(rng.integers(0, 8 * n - int(rng.integers(0, 8)) + 1,
+                                   max(2, n // 40)))
+        check_s2(f"{n} B", payload, cut[:-1], cut[1:])
+    log(f"phase 3: lane_rows of the main chunk ({B} blocks, {pay_bytes} B, "
+        f"rows of {rows.shape[1]} words) == the host gather's; err {err}, "
+        f"one byte off {err1}, random blocks over 1 B .. 1 MiB: "
+        f"{errs['lane_rows']}")
+
+    # timing at the main path's shapes, beside K1 on the same lanes
+    c0 = new_carry(dev)
+    k1_ms = cuda_ms(torch, lambda: encode_blocks(lanes, valid, etab))
+    live = int(((bits.long() + 31) // 32).sum()) * 4
+    moved = {
+        # the words that hold bits, the counts, the carry; the payload and
+        # the carry out
+        "stitch": live + nbytes(bits) + 8 + pay_bytes + 8,
+        # the payload and the start bits; the rows and bit0
+        "lane_rows": pay.numel() + 8 * B + nbytes(rows, bit0),
+    }
+    W = rows.shape[1]
+    idx = torch.from_numpy(starts // 32).to(dev)[:, None] + torch.arange(
+        W, device=dev)[None, :]
+    padded = torch.zeros(4 * (int(idx.max()) + 1), dtype=torch.uint8,
+                         device=dev)
+    padded[:pay_bytes] = pay
+    words_le = padded.view(torch.int32)
+
+    def library_rows():
+        """The PyTorch index gather of the rows, then their byteswap."""
+        return words_le[idx].view(torch.uint8).view(B, W, 4).flip(-1)
+
+    if not torch.equal(library_rows().contiguous().view(torch.int32).view(
+            B, W), rows):
+        fail("lane_rows: the library gather's rows differ from the kernel's")
+    timing = {
+        "stitch": (cuda_ms(torch, lambda: stitch_lanes(words, bits, c0)),
+                   cuda_ms(torch, lambda: stitch_lanes_reference(
+                       words, bits, c0), reps=2), None),
+        "lane_rows": (cuda_ms(torch, lambda: lane_rows(pay, starts, ends)),
+                      cuda_ms(torch, lambda: lane_rows_reference(
+                          pay, starts, ends), reps=2),
+                      cuda_ms(torch, library_rows)),
+    }
+    # S2's wrapper waits for its previous call's copy of the start bits
+    # (a pinned buffer it keeps), so behind a device spin it would wait for
+    # the spin: its device time alone is read from its C entry, the start
+    # bits already on the card, and its host time per call from the
+    # wrapper called back to back
+    d_starts = torch.from_numpy(starts).to(dev)
+    r_out, b_out = torch.empty_like(rows), torch.empty_like(bit0)
+
+    def rows_entry():
+        _build.launch("tpuhuff_lane_rows", dev, pay.data_ptr(), pay.numel(),
+                      d_starts.data_ptr(), r_out.data_ptr(), b_out.data_ptr(),
+                      B, W)
+
+    rows_entry()
+    torch.cuda.synchronize()
+    if not (torch.equal(r_out, rows) and torch.equal(b_out, bit0)):
+        fail("lane_rows: its C entry differs from the wrapper")
+    t0 = time.perf_counter()
+    for _ in range(5):
+        lane_rows(pay, starts, ends)
+    rows_host = (time.perf_counter() - t0) * 1e3 / 5
+    torch.cuda.synchronize()
+    alone = {"stitch": spin_ms(torch, lambda: stitch_lanes(words, bits, c0)),
+             "lane_rows": (spin_ms(torch, rows_entry)[0], rows_host)}
+    for k, (ms, plain_ms, lib_ms) in timing.items():
+        log(f"phase 3: {k} at the main path's shapes: kernel {ms:.4f} ms, "
+            f"alone {alone[k][0]:.4f} ms, the wrapper's host time per call "
+            f"{alone[k][1]:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{moved[k] / HBM_BYTES_PER_MS:.4f} ms ({moved[k]} B at 3.35 "
+            f"TB/s); K1 on the same lanes {k1_ms:.4f} ms [{card}]")
+    return timing, moved
+
+
+def pass2_chunks(src: str, block_len: int = LANE) -> int:
+    """The chunks pass 2 of the ``.hf2`` device writer encodes ``src`` in
+    (default chunk, CRC column on): one K1 and one S1 launch each."""
+    from tpuhuff_torch.io.host import _chunk_step
+
+    step = _chunk_step(block_len, None, True)[0]
+    return -(-os.path.getsize(src) // step)
+
+
+def decode_groups(src: str, block_len: int = LANE) -> int:
+    """The groups the device reader decodes ``src``'s ``.hf2`` in (default
+    chunk): one S2 and one decoder launch each."""
+    from tpuhuff_torch.io.host import _CHUNK
+
+    blocks = -(-os.path.getsize(src) // block_len)
+    return -(-blocks // max(1024, _CHUNK // block_len))
+
+
+class host_stages_forbidden:
+    """While active, the host stages that the card's path no longer runs
+    fail the run if anything calls them: the host stitch
+    (``dist.stitch_words``, ``native.stitch_blocks``), the shifting sink
+    write (``_BitSink.write``), the lane padding (``pad_to_blocks``) and
+    the host row gather (``payload_to_lane_words``, ``native.extract_rows``)."""
+
+    def __enter__(self):
+        import tpuhuff_torch.dist as dist
+        import tpuhuff_torch.dist.block as block
+        import tpuhuff_torch.kernels as kernels
+        import tpuhuff_torch.kernels.decode as decode
+        from tpuhuff_torch import native
+        from tpuhuff_torch.io import host
+
+        self.saved = []
+        for owner, name in ((dist, "stitch_words"), (native, "stitch_blocks"),
+                            (host._BitSink, "write"), (dist, "pad_to_blocks"),
+                            (block, "pad_to_blocks"),
+                            (kernels, "payload_to_lane_words"),
+                            (decode, "payload_to_lane_words"),
+                            (native, "extract_rows")):
+            self.saved.append((owner, name, getattr(owner, name)))
+
+            def forbidden(*args, _name=name, **kw):
+                fail(f"the card's path called the host stage {_name}")
+
+            setattr(owner, name, forbidden)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
 
 
 def pass1_pieces(src: str, chunk_bytes: int | None = None) -> int:
@@ -950,11 +1228,13 @@ def main() -> None:
         histogram,
         histogram_grid,
         histogram_reference,
+        lane_rows,
         make_canonical_decode_tables,
         make_decode_tables,
         make_encode_tables,
         out_words,
         payload_to_lane_words,
+        stitch_lanes,
     )
 
     # -- phase 1: environment ------------------------------------------------
@@ -1036,7 +1316,7 @@ def main() -> None:
     rng_k5 = np.random.default_rng(5)  # the earlier phases keep their inputs
     errs = {"encode": 0, "encode_hist": 0, "decode": 0, "decode_general": 0,
             "histogram": 0, "decode_global_rows": 0,
-            "decode_general_global_rows": 0}
+            "decode_general_global_rows": 0, "stitch": 0, "lane_rows": 0}
 
     def poison(lanes, etab):
         """Fill the allocator's blocks of the words' size with 0xFF and free
@@ -1327,6 +1607,9 @@ def main() -> None:
     log(f"phase 3: histogram over 1 B .. {MAIN_MB} MiB of {HIST_KINDS}, "
         f"starts 0, 3 and 13 bytes past a 16-byte boundary, and into running "
         f"counts over 15 MiB pieces: max err {errs['histogram']}")
+    # the host stages on the card: the stitch S1 and the row gather S2
+    stage_timing, stage_moved = phase3_host_stages(dev, card, np, torch, cases,
+                                                   tree_of, errs)
     if any(errs.values()):
         fail(f"kernels disagree with their plain versions: {errs}")
 
@@ -1524,7 +1807,9 @@ def main() -> None:
     torch.cuda.synchronize()
 
     # -- phase 4: the main paths ---------------------------------------------
-    counters = {"encode": (encode_blocks, "launches"),
+    counters = {"stitch": (stitch_lanes, "launches"),
+                "lane_rows": (lane_rows, "launches"),
+                "encode": (encode_blocks, "launches"),
                 "encode_hist": (encode_blocks, "hist_launches"),
                 "decode": (decode_rows, "launches"),
                 "decode_general": (decode_rows_general, "launches"),
@@ -1558,11 +1843,13 @@ def main() -> None:
             src = os.path.join(work, f"{name}.bin")
             dst, ref = f"{src}.{tag}.hf2", f"{src}.{tag}.ref.hf2"
             out, out_ref = dst + ".out", ref + ".out"
-            read_compress_write_hf2(src, dst, device=dev, **kw)
-            read_decompress_write_hf2(dst, out, device=dev)
+            with host_stages_forbidden():
+                read_compress_write_hf2(src, dst, device=dev, **kw)
+                read_decompress_write_hf2(dst, out, device=dev)
             read_compress_write_hf2_host(
                 src, ref, **{"block_len": LANE, "max_code_len": 32, **kw})
-            read_decompress_write_hf2(ref, out_ref, device=dev)
+            with host_stages_forbidden():
+                read_decompress_write_hf2(ref, out_ref, device=dev)
             if sha(dst) != sha(ref):
                 fail(f"{name} ({tag}): port container differs from the host "
                      "writer's")
@@ -1588,6 +1875,19 @@ def main() -> None:
             fail(f"4a: pass 1 launched K3 {launches['histogram']} times for "
                  f"{pieces} pieces")
         log(f"phase 4a: pass 1 launched K3 once per piece ({pieces} pieces)")
+        srcs4a = [os.path.join(work, f"{name}.bin")
+                  for name in ("textlike", "random", "fib")]
+        chunks = sum(pass2_chunks(p) for p in srcs4a)
+        groups = 2 * sum(decode_groups(p) for p in srcs4a)  # two decodes each
+        if (launches["stitch"], launches["encode"]) != (chunks, chunks):
+            fail(f"4a: S1 {launches['stitch']} and K1 {launches['encode']} "
+                 f"launches for {chunks} pass-2 chunks")
+        if (launches["lane_rows"], launches["decode"]) != (groups, groups):
+            fail(f"4a: S2 {launches['lane_rows']} and K2 {launches['decode']} "
+                 f"launches for {groups} decode groups")
+        log(f"phase 4a: S1 once per pass-2 chunk ({chunks} chunks), S2 once "
+            f"per decode group ({groups} groups); no host stitch, shifting "
+            "sink write, lane padding or host row gather ran")
         pass1_trace(work)
         # (b) non-canonical containers: K4.  The Fibonacci file's own tree
         # is length-limited, hence canonical by construction, so its
@@ -1606,7 +1906,11 @@ def main() -> None:
             after = read()
             k2 = after["decode"] - before["decode"]
             k4 = after["decode_general"] - before["decode_general"]
-            log(f"phase 4b: {name} ({tag}): decode launches K2 {k2}, K4 {k4}")
+            s2 = after["lane_rows"] - before["lane_rows"]
+            log(f"phase 4b: {name} ({tag}): decode launches K2 {k2}, K4 {k4}, "
+                f"S2 {s2}")
+            if s2 != k2 + k4:
+                fail(f"{name} ({tag}): S2 {s2} launches for {k2 + k4} decodes")
             if (k2 > 0) != want_k2 or (k4 > 0) == want_k2:
                 fail(f"{name} ({tag}): wrong decoder (K2 {k2}, K4 {k4})")
         launches_b = read()
@@ -1632,13 +1936,16 @@ def main() -> None:
             launches)."""
             stats = {}
             reset()
-            outs = compress_dataset(srcs[: kw.pop("n", N_SHARDS)],
-                                    out_dir=os.path.join(work, mode),
-                                    device=dev, stats=stats, **kw)
+            with host_stages_forbidden():
+                outs = compress_dataset(srcs[: kw.pop("n", N_SHARDS)],
+                                        out_dir=os.path.join(work, mode),
+                                        device=dev, stats=stats, **kw)
             decs = decompress_dataset(outs, out_dir=os.path.join(work, mode,
                                                                  "dec"),
                                       device=dev)
             counts = read()
+            if counts["stitch"] != counts["encode"] + counts["encode_hist"]:
+                fail(f"4c {mode}: S1 did not follow every K1/K5: {counts}")
             for src, dec in zip(srcs, decs):
                 if not same_file(dec, src):
                     fail(f"4c {mode}: {dec} does not restore {src}")
@@ -1703,8 +2010,10 @@ def main() -> None:
         round_trip("random", "block1000", block_len=1000)
         counts = read()
         log(f"phase 4d: block_len 1000 (lanes of 8 B): launches {counts}")
-        if not counts["encode"]:
-            fail("4d: K1 never launched at 8-byte lanes")
+        if not counts["encode"] or counts["stitch"] != counts["encode"]:
+            fail("4d: K1 and S1 did not launch alike at 8-byte lanes")
+        if counts["lane_rows"] != counts["decode"] + counts["decode_general"]:
+            fail(f"4d: S2 did not precede every decode: {counts}")
         # (e) the missing-letter count and the block bit lengths beside K1
         phase4e_guards(work, dev, card, np, torch)
 
@@ -1812,7 +2121,17 @@ def main() -> None:
                            "tpuhuff/kernels/pallas_decode.py:269"),
         "histogram": ("tpuhuff_torch/csrc/histogram.cu",
                       "tpuhuff/kernels/pallas_histogram.py:139"),
+        # no Pallas kernel computes these two: the host functions they stand for
+        "stitch": ("tpuhuff_torch/csrc/stitch.cu + "
+                   "tpuhuff_torch/csrc/stitch_common.cuh",
+                   "tpuhuff/dist/__init__.py:33 (stitch_words, host)"),
+        "lane_rows": ("tpuhuff_torch/csrc/lane_rows.cu + "
+                      "tpuhuff_torch/csrc/lane_rows_common.cuh",
+                      "tpuhuff/kernels/decode.py:88 (payload_to_lane_words, "
+                      "host)"),
     }
+    timing.update(stage_timing)
+    bound.update({k: b / HBM_BYTES_PER_MS for k, b in stage_moved.items()})
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[k], "max_abs_err": errs[k],
                 "ms": timing[k][0], "plain_ms": timing[k][1],

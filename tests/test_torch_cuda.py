@@ -32,6 +32,10 @@ from tpuhuff_torch.kernels import (
 
 from chip_smoke import HIST_KINDS, make_hist_input
 from test_torch_decode_split import CASES, split_case
+from test_torch_lane_rows import CASES as ROW_CASES
+from test_torch_lane_rows import blocks_case
+from test_torch_stitch import KINDS as STITCH_KINDS
+from test_torch_stitch import _carry, lanes_case
 
 pytestmark = pytest.mark.cuda
 
@@ -483,3 +487,74 @@ def test_compress_sharded_on_four_entries_of_one_card(dev):
         assert got.to_bytes() == want
         assert tpuhuff_torch.decompress(got) == data.tobytes()
     assert dryrun_multichip(4, dev)["bits"] > 0
+
+
+@pytest.mark.parametrize("kind", STITCH_KINDS)
+def test_stitch_kernel_matches_plain(dev, kind):
+    """S1 against its plain version behind every carry of 0-7 bits, and a
+    chain of chunks (one empty) through the carry the kernel leaves on the
+    device: the whole payload, capacity included, and the carry out."""
+    from tpuhuff_torch.kernels import (
+        new_carry,
+        stitch_lanes,
+        stitch_lanes_reference,
+    )
+
+    words, bits = lanes_case(kind)
+    dw, db = words.to(dev), bits.to(dev)
+    for n in range(8):
+        carry, _ = _carry(n, n)
+        before = stitch_lanes.launches
+        got = stitch_lanes(dw, db, carry.to(dev))
+        want = stitch_lanes_reference(words, bits, carry)
+        torch.cuda.synchronize()
+        assert stitch_lanes.launches == before + 1
+        assert got[0].cpu().equal(want[0]) and got[1].cpu().equal(want[1])
+    carry_g, carry_r = new_carry(dev), new_carry()
+    for lo, hi in ((0, 5), (5, 5), (5, 17), (17, words.shape[0])):
+        pg, carry_g = stitch_lanes(dw[lo:hi], db[lo:hi], carry_g)
+        pr, carry_r = stitch_lanes_reference(words[lo:hi], bits[lo:hi],
+                                             carry_r)
+        assert pg.cpu().equal(pr) and carry_g.cpu().equal(carry_r)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_lane_rows_kernel_matches_plain(dev, offset):
+    """S2 against its plain version at payload ends (slack words 0),
+    unaligned block offsets and a payload view one byte in (the byte-wise
+    loads)."""
+    from tpuhuff_torch.kernels import lane_rows, lane_rows_reference
+
+    for n_bytes, seed in ROW_CASES:
+        payload, starts, ends = blocks_case(n_bytes, seed)
+        store = torch.zeros(n_bytes + offset, dtype=torch.uint8, device=dev)
+        store[offset:] = torch.from_numpy(payload).to(dev)
+        before = lane_rows.launches
+        rows, bit0 = lane_rows(store[offset:], starts, ends)
+        want = lane_rows_reference(torch.from_numpy(payload), starts, ends)
+        torch.cuda.synchronize()
+        assert lane_rows.launches == before + 1
+        assert rows.cpu().equal(want[0]) and bit0.cpu().equal(want[1])
+
+
+def test_file_path_through_the_host_stage_kernels(dev, tmp_path):
+    """The .hf2 round trip on the card in small chunks: S1 once per chunk,
+    S2 once per decode group, the host writer's bytes, the source back."""
+    from tpuhuff_torch.io import read_compress_write_hf2, read_decompress_write_hf2
+    from tpuhuff_torch.io.host import read_compress_write_hf2_host
+    from tpuhuff_torch.kernels import lane_rows, stitch_lanes
+
+    data = (np.random.default_rng(4).zipf(1.3, 3_000_001) % 97).astype(np.uint8)
+    src, port, host, out = (str(tmp_path / k) for k in ("s", "p", "h", "o"))
+    data.tofile(src)
+    before = stitch_lanes.launches, lane_rows.launches
+    read_compress_write_hf2(src, port, device=dev, chunk_bytes=1 << 20)
+    read_decompress_write_hf2(port, out, device=dev, chunk_bytes=1 << 20)
+    torch.cuda.synchronize()
+    read_compress_write_hf2_host(src, host, block_len=256, max_code_len=32,
+                                 chunk_bytes=1 << 20)
+    assert open(port, "rb").read() == open(host, "rb").read()
+    assert open(out, "rb").read() == data.tobytes()
+    assert stitch_lanes.launches - before[0] == 3  # 3 chunks of 1 MiB
+    groups = -(-(-(-data.size // 256)) // 4096)  # 4096 blocks a 1 MiB group
+    assert lane_rows.launches - before[1] == groups

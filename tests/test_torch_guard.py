@@ -39,6 +39,7 @@ JAX_PACKAGE_IMPORT = re.compile(r"^\s*(from|import)\s+tpuhuff(\.|\s|$)",
 
 def _python_files():
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "experiments", "file_path_stages.py")
     for path in _sources():
         if path.endswith(".py"):
             yield path
@@ -72,6 +73,25 @@ def test_cuda_sources_and_launch_counters(kernel):
         "decode_general": (k.decode_rows_general, "launches"),
         "histogram": (k.histogram, "launches")}[kernel]
     assert isinstance(getattr(wrapper, counter), int)
+
+
+@pytest.mark.parametrize("kernel", ["stitch", "lane_rows"])
+def test_host_stage_kernels_sources_and_counters(kernel):
+    """The two kernels that took the JAX package's host stages onto the
+    card (S1, S2) have their CUDA source, with the note on the host
+    function each replaces (no Pallas kernel computes either), and a
+    launch counter."""
+    text = open(os.path.join(PKG, "csrc", f"{kernel}.cu"),
+                encoding="utf-8").read()
+    assert re.search(r"__global__", text)
+    replaces = {"stitch": "Replaces tpuhuff/dist/__init__.py::stitch_words",
+                "lane_rows": "Replaces tpuhuff/kernels/decode.py::"
+                             "payload_to_lane_words"}[kernel]
+    assert replaces in " ".join(text.split())
+    import tpuhuff_torch.kernels as k
+
+    wrapper = {"stitch": k.stitch_lanes, "lane_rows": k.lane_rows}[kernel]
+    assert isinstance(wrapper.launches, int)
 
 
 def test_port_runs_without_jax():

@@ -134,3 +134,93 @@ def test_port_rejects_unknown_device(tmp_path):
     src, _ = _src(tmp_path, 100)
     with pytest.raises(ValueError):
         read_compress_write_hf2(src, str(tmp_path / "p.hf2"), device="meta")
+
+
+# -- chunks whose boundaries fall inside a byte: the device stitch's carry --
+
+def _boundary_carries(path, step_blocks):
+    """The bits carried across each chunk boundary of a ``.hf2`` written in
+    chunks of ``step_blocks`` blocks (each chunk's end bit mod 8)."""
+    from tpuhuff_torch.io.hff import read_hf2_header
+
+    with open(path, "rb") as fp:
+        ends = read_hf2_header(fp).end_bits.astype(np.int64)
+    return {int(ends[k - 1]) % 8 for k in range(step_blocks, ends.size,
+                                                 step_blocks)}
+
+
+@pytest.mark.parametrize("n,opts", [
+    (300_000, {"block_len": 256, "check": False, "chunk_bytes": 5 * 256}),
+    (300_000, {"block_len": 1000, "check": False, "chunk_bytes": 3000}),
+    (600_001, {"block_len": 256, "check": True, "chunk_bytes": 64 * 1024}),
+])
+def test_hf2_small_chunks_carry_bits_across_boundaries(tmp_path, n, opts):
+    """The port's writer in small chunks, every chunk's stitch behind the
+    bits the one before left on the device: the JAX device writer's bytes
+    (written in one chunk: the chunking never changes the bytes), and the
+    reader, in small groups, restores the source."""
+    src, data = _src(tmp_path, n, seed=6)
+    port, dev = str(tmp_path / "p.hf2"), str(tmp_path / "d.hf2")
+    read_compress_write_hf2(src, port, device="cpu", **opts)
+    kw = {k: v for k, v in opts.items() if k != "chunk_bytes"}
+    jax_stream.read_compress_write_hf2(src, dev, device=True, **kw)
+    assert open(port, "rb").read() == open(dev, "rb").read()
+    step = max(1, opts["chunk_bytes"] // opts["block_len"])
+    if not opts["check"]:
+        assert _boundary_carries(port, step) >= set(range(1, 8))
+    else:
+        assert len(_boundary_carries(port, step) - {0}) >= 1
+    out = str(tmp_path / "p.out")
+    read_decompress_write_hf2(port, out, device="cpu", chunk_bytes=4096)
+    assert open(out, "rb").read() == data.tobytes()
+
+
+def test_hff_small_pieces_carry_bits_across_boundaries(tmp_path):
+    """The ``.hff`` device writer in 1000-byte pieces (lanes of 256 bytes,
+    the last ragged): the JAX device writer's and the host writer's bytes,
+    and the host reader restores the source."""
+    from tpuhuff_torch.io import read_compress_write, read_decompress_write
+    from tpuhuff_torch.io.host import read_compress_write_host
+
+    src, data = _src(tmp_path, 120_007, seed=7)
+    port, dev, host = (str(tmp_path / f"{k}.hff") for k in ("p", "d", "h"))
+    read_compress_write(src, port, block_size=1000, device="cpu")
+    jax_stream.read_compress_write(src, dev, device=True)
+    read_compress_write_host(src, host)
+    got = open(port, "rb").read()
+    assert got == open(dev, "rb").read() == open(host, "rb").read()
+    out = str(tmp_path / "p.out")
+    read_decompress_write(port, out)
+    assert open(out, "rb").read() == data.tobytes()
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_dataset_small_chunks_carry_bits_across_boundaries(tmp_path,
+                                                           monkeypatch,
+                                                           adaptive):
+    """Config 4's shards written by the port in 1280-byte chunks: the JAX
+    package's containers (shared and adaptive trees), restored."""
+    from tpuhuff.io import dataset as jax_dataset
+
+    from tpuhuff_torch.io import compress_dataset, decompress_dataset
+    from tpuhuff_torch.io import host as port_host
+
+    srcs = []
+    for k in range(3):
+        path, _ = _src(tmp_path, 40_000 + 777 * k, seed=8 + k)
+        srcs.append(path)
+    kw = {"block_len": 256, "check": False, "hist_sample": 1,
+          "adaptive": adaptive}
+    jouts = jax_dataset.compress_dataset(srcs, out_dir=str(tmp_path / "j"),
+                                         device=True, **kw)
+    monkeypatch.setattr(port_host, "_CHUNK", 5 * 256)
+    outs = compress_dataset(srcs, out_dir=str(tmp_path / "p"), device="cpu",
+                            **kw)
+    carries = set()
+    for p, j in zip(outs, jouts):
+        assert open(p, "rb").read() == open(j, "rb").read()
+        carries |= _boundary_carries(p, 5)
+    assert carries >= set(range(1, 8))
+    decs = decompress_dataset(outs, out_dir=str(tmp_path / "dec"), device="cpu")
+    for src, dec in zip(srcs, decs):
+        assert open(dec, "rb").read() == open(src, "rb").read()

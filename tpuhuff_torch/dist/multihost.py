@@ -155,7 +155,7 @@ def compress_file_multihost(
         write_hf2_prelude, write_hf2_table_slice,
     )
     from ..io.host import _BitSink
-    from ..io.stream import _device_block_encoder, _Staging
+    from ..io.stream import _DeviceBlockEncoder, _Staging
 
     dev = _default_device(device)
     nproc, pid = _world()
@@ -185,7 +185,7 @@ def compress_file_multihost(
     lens_lut, _ = tree.encode_tables()
     ml = int(lens_lut.max(initial=1))
     width = hf2_table_width(block_len, ml)
-    enc = _device_block_encoder(tree, block_len, dev, _Staging(dev))
+    enc = _DeviceBlockEncoder(tree, block_len, dev, _Staging(dev))
 
     ce = default_crc_every(block_len) if check else 0
     span = ce * block_len
@@ -219,8 +219,10 @@ def compress_file_multihost(
                         dtype=np.uint8)
                     my_nb = b1 - b0
                     if data.size:
-                        my_payload, _nbits, bl, _ = enc.collect(enc(data, 0))
-                        my_lens[:my_nb] = bl
+                        # each super-chunk is a stream of its own
+                        chunk = enc.collect(enc(data, 0, fresh=True))
+                        my_payload = chunk.payload()
+                        my_lens[:my_nb] = chunk.bit_lens
                         if ce:
                             for j, (c, ln) in enumerate(crc_span_pieces(
                                     data, b0 * block_len, span)):

@@ -218,6 +218,23 @@ class _BitSink:
         self.partial_bits = 0
         self.total_bits = 0
 
+    def write_aligned(self, full, nbits: int, partial: int,
+                      partial_bits: int) -> None:
+        """Append ``nbits`` bits whose stream starts at the partial byte:
+        ``full`` (bytes or a uint8 array) are the stream's whole bytes, the
+        first completing the sink's partial byte, and ``partial`` (its bits
+        high) with ``partial_bits`` (0-7) is the new partial byte, written
+        by the next call or by :meth:`flush`.  Nothing is shifted: the
+        device stitch has placed the carried bits (``tpuhuff_torch.kernels.
+        stitch_lanes``)."""
+        if self.partial_bits + nbits != 8 * len(full) + partial_bits:
+            raise ValueError("write_aligned: the bytes do not continue the "
+                             "sink's partial byte")
+        self.total_bits += nbits
+        self.fp.write(full)
+        self.partial = partial
+        self.partial_bits = partial_bits
+
     def write(self, payload: bytes, nbits: int) -> None:
         if nbits == 0:
             return
@@ -267,15 +284,25 @@ class _Hf2Sink:
         self.bits = _BitSink(dst)
         self.bidx = 0  # first block of the next chunk
 
-    def write(self, payload: bytes, nbits: int, bit_lens: np.ndarray,
-              crcs: np.ndarray | None) -> None:
+    def _patch(self, bit_lens: np.ndarray, crcs: np.ndarray | None) -> None:
         write_hf2_table_slice(self.dst, self.table_off, self.width, self.bidx,
                               bit_lens)
         if crcs is not None:
             write_hf2_crc_slice(self.dst, self.crc_off,
                                 self.bidx // self.crc_every, crcs)
-        self.bits.write(payload, nbits)
         self.bidx += bit_lens.size
+
+    def write(self, payload: bytes, nbits: int, bit_lens: np.ndarray,
+              crcs: np.ndarray | None) -> None:
+        self._patch(bit_lens, crcs)
+        self.bits.write(payload, nbits)
+
+    def write_aligned(self, full, nbits: int, partial: int, partial_bits: int,
+                      bit_lens: np.ndarray, crcs: np.ndarray | None) -> None:
+        """:meth:`write` for the device writers' byte-aligned chunks
+        (:meth:`_BitSink.write_aligned`)."""
+        self._patch(bit_lens, crcs)
+        self.bits.write_aligned(full, nbits, partial, partial_bits)
 
     def finish(self) -> None:
         self.bits.flush()
@@ -381,19 +408,26 @@ def _host_tree(bw: ByteWeights, max_code_len: int | None) -> HuffTree:
     return HuffTree.from_weights(bw)
 
 
-def _pipeline(src: BinaryIO, size: int, step: int, submit, collect) -> None:
+def _pipeline(src: BinaryIO, size: int, step: int, submit, collect,
+              read=None) -> None:
     """The writers' read-ahead loop: ``size`` bytes of ``src`` in ``step``
     pieces, where piece k+1 is read and handed to ``submit(data, slot)``
     before ``collect`` takes piece k's handle; so the encode of one piece
     (on a worker thread, or on the card) overlaps the write of the one
-    before it.  ``slot`` alternates 0, 1."""
+    before it.  ``slot`` alternates 0, 1.  ``read(n, slot)``, where given,
+    reads a piece (a uint8 array of at most ``n`` bytes, empty at the end
+    of the file) in place of ``src.read``: the device writers read
+    straight into the slot's pinned buffer."""
     left, k, pending = size, 0, None
     while left > 0 or pending is not None:
         handle = None
-        piece = src.read(min(step, left)) if left > 0 else b""
-        if piece:
-            left -= len(piece)
-            handle = submit(np.frombuffer(piece, dtype=np.uint8), k % 2)
+        piece = np.empty(0, dtype=np.uint8)
+        if left > 0:
+            piece = (read(min(step, left), k % 2) if read is not None else
+                     np.frombuffer(src.read(min(step, left)), dtype=np.uint8))
+        if piece.size:
+            left -= piece.size
+            handle = submit(piece, k % 2)
             k += 1
         else:
             left = 0

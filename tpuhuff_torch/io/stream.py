@@ -9,11 +9,15 @@ JAX package's host code (:mod:`tpuhuff_torch.io.hff`, :mod:`.host`).
 
 Compress: pass 1 histograms the file on the device (:func:`histogram`);
 the host builds the length-limited canonical tree and writes the prelude;
-pass 2 encodes 256-byte lanes on the device (:func:`encode_blocks`; with
+pass 2 reads each chunk straight into a pinned buffer, encodes its
+256-byte lanes on the device (:func:`encode_blocks`; with
 ``collect_hist`` the same launches count the bytes, config 4's adaptive
-refresh) while the host stitches, patches the block table and CRC column
-and writes the previous chunk.  Decompress gathers each group's block
-rows on the host, decodes them on the device (:func:`decode_rows` for
+refresh) and stitches them there into the payload's bytes, the previous
+chunk's trailing bits carried in on the device (:func:`stitch_lanes`),
+while the host patches the block table and CRC column and writes the
+previous chunk's bytes, which it copies back alone.  Decompress copies
+each group's payload bytes to the device, cuts the blocks' rows out of
+them there (:func:`lane_rows`), decodes them (:func:`decode_rows` for
 canonical codes, :func:`decode_rows_general` for any other tree) and
 verifies the CRCs.
 
@@ -26,6 +30,7 @@ from __future__ import annotations
 
 import os
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -35,15 +40,16 @@ from ..core.canonical import build_tree_for_device
 from ..core.format import CompressError
 from ..core.tree import HuffTree
 from ..core.weights import ByteWeights
-from ..dist import pad_to_blocks, stitch_words
 from ..dist.block import lane_of
 from ..dist.mesh import resolve_device as _resolve
 from ..kernels import (
     decoder_for,
     encode_blocks,
     histogram,
+    lane_rows,
     make_encode_tables,
-    payload_to_lane_words,
+    new_carry,
+    stitch_lanes,
 )
 from .host import (
     DEFAULT_BLOCK,
@@ -88,6 +94,7 @@ class _Staging:
         self.cuda = device.type == "cuda"
         self._bufs: dict = {}
         self._events: dict = {}
+        self._side = None  # the copy-back stream of fetch()
 
     def _buffer(self, key, nbytes: int) -> torch.Tensor:
         ev = self._events.pop(key, None)
@@ -111,9 +118,30 @@ class _Staging:
             return torch.from_numpy(arr if arr.flags.writeable else arr.copy())
         host = self._buffer(key, arr.nbytes)
         host.numpy()[:] = arr.reshape(-1).view(np.uint8)
+        return self._send(host, key).view(_TORCH_DTYPES[arr.dtype]).view(
+            arr.shape)
+
+    def _send(self, host: torch.Tensor, key) -> torch.Tensor:
         dev = host.to(self.device, non_blocking=True)
         self._mark(key)
-        return dev.view(_TORCH_DTYPES[arr.dtype]).view(arr.shape)
+        return dev
+
+    def read_into(self, src, n: int, nbytes: int, key
+                  ) -> tuple[torch.Tensor, int]:
+        """Read up to ``n`` bytes of ``src`` straight into ``key``'s host
+        buffer of ``nbytes >= n`` bytes and zero the rest of it; returns
+        the buffer (a pinned tensor on CUDA) and the bytes read."""
+        buf = (self._buffer(key, nbytes) if self.cuda
+               else torch.empty(nbytes, dtype=torch.uint8))
+        arr = buf.numpy()
+        got = src.readinto(memoryview(arr)[:n]) or 0
+        arr[got:] = 0
+        return buf, got
+
+    def to_device(self, buf: torch.Tensor, key) -> torch.Tensor:
+        """Start copying ``key``'s buffer from :meth:`read_into` to the
+        device (the buffer itself on the CPU)."""
+        return self._send(buf, key) if self.cuda else buf
 
     def d2h(self, t: torch.Tensor, key) -> torch.Tensor:
         """Start copying ``t`` to the host; read it after :meth:`fence`'s
@@ -126,6 +154,22 @@ class _Staging:
         self._mark(key)
         return host
 
+    def fetch(self, t: torch.Tensor, key, after) -> np.ndarray:
+        """Copy ``t`` to ``key``'s host buffer once the event ``after`` has
+        completed, on a stream of its own, so that the copy does not queue
+        behind the work enqueued since; waits for it and returns the bytes
+        (``t`` itself on the CPU)."""
+        if not self.cuda:
+            return t.numpy()
+        host = self._buffer(key, t.numel() * t.element_size()).view(t.dtype)
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        self._side.wait_event(after)
+        with torch.cuda.stream(self._side):
+            host.copy_(t, non_blocking=True)
+        self._side.synchronize()
+        return host.numpy()
+
     def fence(self):
         """An event after everything enqueued so far (None on the CPU)."""
         if not self.cuda:
@@ -135,58 +179,124 @@ class _Staging:
         return ev
 
 
-def _device_block_encoder(tree: HuffTree, block_len: int,
-                          device: torch.device, staging: _Staging,
-                          collect_hist: bool = False):
+@dataclass
+class _Chunk:
+    """One encoded chunk, as the byte-aligned sinks take it: ``full``, the
+    stream's whole bytes (the first completing the bits carried in),
+    ``nbits`` the chunk's own bits, the new partial byte and its bit count,
+    the per-block bit lengths and the (256,) counts or None."""
+
+    full: np.ndarray
+    nbits: int
+    partial: int
+    partial_bits: int
+    bit_lens: np.ndarray
+    hist: np.ndarray | None
+
+    def payload(self) -> bytes:
+        """The chunk's bytes, its partial byte last (for a chunk encoded
+        ``fresh``: its own payload, padded to a byte)."""
+        tail = bytes([self.partial]) if self.partial_bits else b""
+        return self.full.tobytes() + tail
+
+
+class _DeviceBlockEncoder:
     """Device encoder for ``.hf2`` block groups (counterpart of
     ``tpuhuff.io.stream._device_block_encoder``).
 
     Each ``block_len`` block is encoded as ``block_len // lane`` independent
     lanes and the lane streams are bit-concatenated in order, which is
     bit-identical to encoding the block whole (prefix-code concatenation
-    is associative); per-block bit lengths are lane sums.  ``collect_hist``
-    counts the chunk's bytes in the same launch (K5, ``hist_data`` = the
-    lanes just copied); ``collect`` subtracts the lanes' zero padding from
-    bin 0, as the JAX route does."""
-    tables = make_encode_tables(*tree.encode_tables()).to(device)
-    ml = tables.max_len
-    lane = lane_of(block_len)
-    per_block = block_len // lane
-    names = ("words", "bits", "miss", "hist")
+    is associative); per-block bit lengths are lane sums.
 
-    def submit(data: np.ndarray, slot: int):
-        """H2D + kernel + D2H for one chunk, without waiting for any."""
-        # whole blocks of lanes: the last block's missing lanes are padding
-        lanes, valid, _ = pad_to_blocks(data, lane, per_block)
-        nb = lanes.shape[0] // per_block
-        dlanes = staging.h2d(lanes, ("lanes", slot))
-        out = encode_blocks(dlanes, staging.h2d(valid, ("valid", slot)),
-                            tables, ml,
-                            hist_data=dlanes if collect_hist else None)
-        host = tuple(staging.d2h(t, (name, slot)) for name, t in zip(names, out))
-        return host, nb, lanes.size - data.size, staging.fence()
+    A chunk is read straight into its slot's host buffer (:meth:`read`),
+    sized to whole blocks of lanes with only the tail zeroed, copied to
+    the device, and its lanes' valid counts are made there.  Then, on one
+    stream: K1 (K5 with ``collect_hist``: the same launch counts the
+    chunk's bytes, ``hist_data`` the lanes), the device stitch S1
+    (:func:`stitch_lanes`), which takes the previous chunk's trailing bits
+    from the carry its stitch left on the device, and the per-block bit
+    sums and the summed missing count, copied back.  :meth:`collect` waits
+    for those, then copies back exactly the chunk's stream bytes on a side
+    stream, and subtracts the lanes' zero padding from bin 0 of the
+    counts, as the JAX route does.  Chunks must be collected in the order
+    they were submitted; ``fresh=True`` starts a stream of its own."""
 
-    def collect(handle):
-        """Wait for a submitted chunk; host stitch of its words.  Returns
-        ``(payload, total_bits, bit_lens, hist)``, ``hist`` the chunk's
-        (256,) int64 counts or None."""
-        host, nb, pad, done = handle
+    names = ("sums", "miss", "hist")
+
+    def __init__(self, tree: HuffTree, block_len: int, device: torch.device,
+                 staging: _Staging, collect_hist: bool = False):
+        self.tables = make_encode_tables(*tree.encode_tables()).to(device)
+        self.block_len = block_len
+        self.lane = lane_of(block_len)
+        self.per_block = block_len // self.lane
+        self.device, self.staging = device, staging
+        self.collect_hist = collect_hist
+        self.carry = new_carry(device)  # the stream's trailing bits, on the device
+        self.carry_bits = 0             # their count, as the host knows it
+        self._read = {}                 # slot -> the buffer read() filled
+
+    def _padded(self, n: int) -> int:
+        return max(1, -(-n // self.block_len)) * self.block_len
+
+    def read(self, src, n: int, slot: int) -> np.ndarray:
+        """Read up to ``n`` bytes into ``slot``'s buffer (for
+        :func:`_pipeline`); returns the bytes read."""
+        buf, got = self.staging.read_into(src, n, self._padded(n),
+                                          ("lanes", slot))
+        self._read[slot] = buf
+        return buf.numpy()[:got]
+
+    def __call__(self, data: np.ndarray, slot: int, fresh: bool = False):
+        """H2D + kernels + the small D2H for one chunk, without waiting
+        for any.  ``data`` is what :meth:`read` returned, or any bytes."""
+        n = data.size
+        nbytes = self._padded(n)
+        buf = self._read.pop(slot, None)
+        if buf is None or buf.numpy().ctypes.data != data.ctypes.data:
+            buf = (self.staging._buffer(("lanes", slot), nbytes)
+                   if self.staging.cuda else torch.empty(nbytes, dtype=torch.uint8))
+            arr = buf.numpy()
+            arr[:n] = data
+            arr[n:nbytes] = 0
+        if fresh:
+            self.carry, self.carry_bits = new_carry(self.device), 0
+        n_lanes = nbytes // self.lane
+        lanes = self.staging.to_device(buf[:nbytes], ("lanes", slot)).view(
+            n_lanes, self.lane)
+        starts = torch.arange(0, nbytes, self.lane, device=self.device)
+        valid = (n - starts).clamp_(0, self.lane).to(torch.int32)
+        out = encode_blocks(lanes, valid, self.tables, self.tables.max_len,
+                            hist_data=lanes if self.collect_hist else None)
+        words, bits, miss = out[:3]
+        payload, self.carry = stitch_lanes(words, bits, self.carry)
+        small = (bits.view(-1, self.per_block).sum(1), miss.sum().view(1))
+        if self.collect_hist:
+            small += (out[3],)
+        host = tuple(self.staging.d2h(t, (name, slot))
+                     for name, t in zip(self.names, small))
+        return host, payload, nbytes - n, slot, self.staging.fence()
+
+    def collect(self, handle) -> _Chunk:
+        """Wait for a submitted chunk and copy back its stream's bytes."""
+        host, payload, pad, slot, done = handle
         if done is not None:
             done.synchronize()
-        words, bits, miss = host[:3]
-        if int(miss.sum()):
+        if int(host[1][0]):
             raise CompressError("letter not found in codes", None)
-        bits_np = bits.numpy().astype(np.uint64)
-        payload, _ = stitch_words(words.numpy().view(np.uint32), bits_np)
-        bit_lens = bits_np.reshape(nb, per_block).sum(axis=1)
+        bit_lens = host[0].numpy().astype(np.uint64)  # a copy: slots are reused
+        nbits = int(bit_lens.sum())
+        total = self.carry_bits + nbits
+        stream = self.staging.fetch(payload[: (total + 7) // 8],
+                                    ("payload", slot), done)
+        full, rem = divmod(total, 8)
+        self.carry_bits = rem
         hist = None
-        if collect_hist:
-            hist = host[3].numpy().astype(np.int64)  # a copy: slots are reused
+        if self.collect_hist:
+            hist = host[2].numpy().astype(np.int64)
             hist[0] -= pad  # the padding lanes' zeros
-        return payload, int(bits_np.sum()), bit_lens, hist
-
-    submit.collect = collect
-    return submit
+        return _Chunk(stream[:full], nbits, int(stream[full]) if rem else 0,
+                      rem, bit_lens, hist)
 
 
 def read_compress_write_hf2(
@@ -237,11 +347,11 @@ def read_compress_write_hf2(
                                                    max_len=ml_cap)
         tree, sink = _start_hf2(dst, tree, size, block_len, canonical,
                                 crc_every)
-        # pass 2: chunk k+1 is read, copied and launched before chunk k is
-        # collected, stitched and written
+        # pass 2: chunk k+1 is read, copied and launched (its stitch too)
+        # before chunk k's bytes are copied back and written
         src.seek(0)
-        encoder = _device_block_encoder(tree, block_len, dev, staging,
-                                        collect_hist)
+        encoder = _DeviceBlockEncoder(tree, block_len, dev, staging,
+                                      collect_hist)
         hist = np.zeros(256, dtype=np.int64) if collect_hist else None
 
         def submit(data: np.ndarray, slot: int):
@@ -251,13 +361,15 @@ def read_compress_write_hf2(
 
         def collect(pending) -> None:
             handle, crcs, t0 = pending
-            payload, nbits, bit_lens, counts = encoder.collect(handle)
+            c = encoder.collect(handle)
             _record_call(stats, time.perf_counter() - t0)
-            if counts is not None:
-                hist[:] += counts
-            sink.write(payload, nbits, bit_lens, crcs)
+            if c.hist is not None:
+                hist[:] += c.hist
+            sink.write_aligned(c.full, c.nbits, c.partial, c.partial_bits,
+                               c.bit_lens, crcs)
 
-        _pipeline(src, size, step, submit, collect)
+        _pipeline(src, size, step, submit, collect,
+                  lambda n, slot: encoder.read(src, n, slot))
         sink.finish()
     return hist
 
@@ -295,8 +407,8 @@ def read_compress_write(
             tree, _limited = build_tree_for_device(bw, max_len=cap)
         sink = _HffSink(dst, tree)
         src.seek(0)
-        encoder = _device_block_encoder(tree, DEVICE_HF2_BLOCK, dev,
-                                        _Staging(dev))
+        encoder = _DeviceBlockEncoder(tree, DEVICE_HF2_BLOCK, dev,
+                                      _Staging(dev))
 
         def submit(data: np.ndarray, slot: int):
             with _stage(timer, "pack", data.size):
@@ -306,12 +418,13 @@ def read_compress_write(
         def collect(pending) -> None:
             handle, t0 = pending
             with _stage(timer, "pack", 0):
-                payload, nbits, _, _ = encoder.collect(handle)
+                c = encoder.collect(handle)
             _record_call(stats, time.perf_counter() - t0)
-            with _stage(timer, "write", (nbits + 7) // 8):
-                sink.write(payload, nbits)
+            with _stage(timer, "write", c.full.size):
+                sink.write_aligned(c.full, c.nbits, c.partial, c.partial_bits)
 
-        _pipeline(src, size, step, submit, collect)
+        _pipeline(src, size, step, submit, collect,
+                  lambda n, slot: encoder.read(src, n, slot))
         sink.finish()
 
 
@@ -368,21 +481,22 @@ def _decode_groups(hdr, src, dst, src_path: str, dev: torch.device,
     staging = _Staging(dev)
 
     def submit_group(g0: int, slot: int):
-        """Read + row gather + H2D + kernel + D2H for one group."""
+        """Read + H2D of the group's payload bytes, then the row gather S2
+        and the decoder on the device, and the D2H of the output."""
         g1 = min(g0 + gsize, B)
         byte_lo = int(starts[g0]) // 8
-        byte_hi = (int(ends[g1 - 1]) + 7) // 8
+        nbytes = (int(ends[g1 - 1]) + 7) // 8 - byte_lo
         src.seek(hdr.payload_offset + byte_lo)
-        buf = np.frombuffer(src.read(byte_hi - byte_lo), dtype=np.uint8)
-        if buf.size < byte_hi - byte_lo:
+        buf, got = staging.read_into(src, nbytes, nbytes, ("payload", slot))
+        if got < nbytes:
             raise StreamError(f"{src_path!r} truncated payload",
                               "MissingHeaderInfo")
         ls = (starts[g0:g1] - np.uint64(byte_lo * 8)).astype(np.int64)
         le = (ends[g0:g1] - np.uint64(byte_lo * 8)).astype(np.int64)
-        rows, bit0 = payload_to_lane_words(buf, ls, le, hdr.block_len)
+        rows, bit0 = lane_rows(staging.to_device(buf, ("payload", slot)),
+                               ls, le)
         out = decode(
-            staging.h2d(rows.view(np.int32), ("rows", slot)),
-            staging.h2d(bit0, ("bit0", slot)),
+            rows, bit0,
             staging.h2d((le - ls).astype(np.int32), ("nbits", slot)),
             tables, hdr.block_len)
         last = (hdr.orig_len - (B - 1) * hdr.block_len if g1 == B

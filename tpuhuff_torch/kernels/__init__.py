@@ -10,7 +10,13 @@
   decode for any prefix tree (both share ``csrc/decode_common.cuh`` and a
   first-level table of ``2^LUT_BITS`` entries);
 * :func:`histogram` (``csrc/histogram.cu`` over ``csrc/histogram_common.cuh``)
-  — exact 256-bin byte counts, added into ``out=`` where given.
+  — exact 256-bin byte counts, added into ``out=`` where given;
+* :func:`stitch_lanes` (S1, ``csrc/stitch.cu`` over ``csrc/stitch_common.cuh``)
+  — K1's lanes concatenated at the bit level into big-endian payload
+  bytes, behind a carried partial byte (the host's ``stitch_words``);
+* :func:`lane_rows` (S2, ``csrc/lane_rows.cu`` over
+  ``csrc/lane_rows_common.cuh``) — the decoders' rows cut out of a payload
+  on the device (the host's ``payload_to_lane_words``).
 
 :func:`count_missing` and :func:`block_bit_lengths` are a LUT gather and a
 sum in PyTorch on the data's device (XLA, not Pallas, in the JAX package);
@@ -33,6 +39,8 @@ from .decode import (
     decode_tile_rows,
     decoder_for,
     first_level_table,
+    lane_rows,
+    lane_rows_reference,
     make_canonical_decode_tables,
     make_decode_tables,
     payload_to_lane_words,
@@ -48,6 +56,7 @@ from .encode import (
     words_to_payload,
 )
 from .histogram import histogram, histogram_grid, histogram_reference
+from .stitch import new_carry, stitch_capacity, stitch_lanes, stitch_lanes_reference
 
 __all__ = [
     "LUT_BITS",
@@ -69,10 +78,16 @@ __all__ = [
     "histogram",
     "histogram_grid",
     "histogram_reference",
+    "lane_rows",
+    "lane_rows_reference",
     "make_canonical_decode_tables",
     "make_decode_tables",
     "make_encode_tables",
+    "new_carry",
     "out_words",
     "payload_to_lane_words",
+    "stitch_capacity",
+    "stitch_lanes",
+    "stitch_lanes_reference",
     "words_to_payload",
 ]

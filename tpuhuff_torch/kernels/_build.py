@@ -59,6 +59,10 @@ _SIGNATURES = {
     "tpuhuff_hist256": [_P, _L, _P, _P],
     # n, per_sm (int*, out) (a query: no stream)
     "tpuhuff_hist256_grid": [_L, _P],
+    # words, bits, ends, carry, out, carry_out, B, R, stream
+    "tpuhuff_stitch_lanes": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # payload, n, start_bits, rows, bit0, B, W, stream
+    "tpuhuff_lane_rows": [_P, _L, _P, _P, _P, _I, _I, _P],
 }
 
 _lock = threading.Lock()
