@@ -1,0 +1,6 @@
+"""Output bytes of every decompress call in the window over the window's
+seconds (first call's start to last call's end), in 10^9 B/s."""
+
+
+def value(run):
+    return run.bytes("decompress") / run.window_s / 1e9
