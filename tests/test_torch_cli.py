@@ -293,6 +293,33 @@ def test_cli_profile_prints_stages(tmp_path, monkeypatch, capsys, route):
     assert ("pack" in out) == (route == "cpu")
 
 
+def test_cli_profile_prints_the_hf2_file_paths_stages(tmp_path, monkeypatch,
+                                                      capsys):
+    """``--profile`` on the ``.hf2`` device route prints the spans of the
+    file path; with a directory, its trace holds them as ranges."""
+    import json
+
+    from tpuhuff_torch.profiling import RANGE_PREFIX, TRACE_FILE
+
+    monkeypatch.chdir(tmp_path)
+    data = b"profile the hf2 stages " * 900
+    (tmp_path / "a.bin").write_bytes(data)
+    assert main(["--device", "cpu", "-n", "--hf2", "a.bin", "--profile"]) == 0
+    table = capsys.readouterr().out
+    names = {line.split()[0] for line in table.splitlines()[1:]}
+    assert {"compress", "pass1", "tree", "prelude", "write",
+            "total"} <= names
+    assert main(["--device", "cpu", "-d", "-n", "--hf2", "a.bin.hf2", "b",
+                 "--profile", "trace"]) == 0
+    names = {line.split()[0] for line in
+             capsys.readouterr().out.splitlines()[1:]}
+    assert {"decompress", "header", "tables", "write", "total"} <= names
+    assert (tmp_path / "b").read_bytes() == data
+    events = json.loads((tmp_path / "trace" / TRACE_FILE).read_text())
+    ranges = {e.get("name", "") for e in events["traceEvents"]}
+    assert {RANGE_PREFIX + "decompress", RANGE_PREFIX + "write"} <= ranges
+
+
 def test_cli_host_route_imports_no_torch(tmp_path):
     """A ``--device host`` round trip of both containers, a reindex and a
     dataset leave torch (and JAX) out of ``sys.modules``."""

@@ -39,7 +39,6 @@ JAX_PACKAGE_IMPORT = re.compile(r"^\s*(from|import)\s+tpuhuff(\.|\s|$)",
 
 def _python_files():
     yield os.path.join(ROOT, "chip_smoke.py")
-    yield os.path.join(ROOT, "experiments", "file_path_stages.py")
     for path in _sources():
         if path.endswith(".py"):
             yield path

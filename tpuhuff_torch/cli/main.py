@@ -437,11 +437,13 @@ def main(argv=None) -> int:
         src_size = os.path.getsize(src)
         if not _ask_replace(dst, args.noask):
             return 0
-        from ..profiling import StageTimer, device_trace
+        from ..profiling import StageTimer, device_trace, tracing
 
+        # --profile: the stage table of every route; with a directory the
+        # spans are also profiler ranges in its trace, beside the kernels
         timer = StageTimer() if args.profile is not None else None
         stats: dict = {}
-        with device_trace(args.profile or None):
+        with device_trace(args.profile or None), tracing(timer):
             if args.decompress:
                 _decompress(args, src, dst, block_size, stats)
             else:

@@ -40,6 +40,7 @@ from ..core.bits import BitString, calc_padding_bits
 from ..core.canonical import build_tree_for_device, canonicalize
 from ..core.tree import FromBinError, HuffTree
 from ..core.weights import ByteWeights
+from ..profiling import span, tracing
 from .hff import (
     default_crc_every,
     hf2_table_width,
@@ -64,7 +65,6 @@ __all__ = [
 
 _CHUNK = 64 << 20  # streaming granularity, independent of the block length
 _PASS1_PIECE = 256 << 20  # pass 1 reads (and samples) at most this at once
-_NO_TIMING = contextlib.nullcontext()
 DEFAULT_BLOCK = 2_000_000_000  # the reference's default block size ("2G")
 DEVICE_HF2_BLOCK = 256  # the device writer's default block
 HOST_HF2_BLOCK = 65536  # the host writer's: per-block dispatch dominates below
@@ -81,12 +81,6 @@ class StreamError(ValueError):
     def __init__(self, message: str, kind: str = "Io"):
         super().__init__(message)
         self.kind = kind
-
-
-def _record_call(stats: dict | None, dt: float) -> None:
-    """Append one device-call wall time to ``stats["device_call_s"]``."""
-    if stats is not None:
-        stats.setdefault("device_call_s", []).append(dt)
 
 
 def _invalid(src_path: str) -> StreamError:
@@ -311,17 +305,20 @@ class _Hf2Sink:
 def _start_hf2(dst: BinaryIO, tree: HuffTree, size: int, block_len: int,
                canonical: bool, crc_every: int) -> tuple[HuffTree, _Hf2Sink]:
     """Canonicalise ``tree`` when ``canonical`` and write the ``.hf2``
-    prelude; returns the tree to encode with and the sink of the chunks."""
-    if canonical:
-        tree = canonicalize(tree)
-    lens_lut, _ = tree.encode_tables()
-    width = hf2_table_width(block_len, int(lens_lut.max(initial=1)))
-    n_blocks = max(1, -(-size // block_len)) if size else 1
-    table_off, crc_off, _ = write_hf2_prelude(
-        dst, tree, size, block_len, n_blocks, width, canonical,
-        crc_every=crc_every,
-    )
-    return tree, _Hf2Sink(dst, table_off, crc_off, width, crc_every)
+    prelude; returns the tree to encode with and the sink of the chunks
+    (spans ``tree``, the canonicalisation, inside ``prelude``)."""
+    with span("prelude"):
+        if canonical:
+            with span("tree"):
+                tree = canonicalize(tree)
+        lens_lut, _ = tree.encode_tables()
+        width = hf2_table_width(block_len, int(lens_lut.max(initial=1)))
+        n_blocks = max(1, -(-size // block_len)) if size else 1
+        table_off, crc_off, _ = write_hf2_prelude(
+            dst, tree, size, block_len, n_blocks, width, canonical,
+            crc_every=crc_every,
+        )
+        return tree, _Hf2Sink(dst, table_off, crc_off, width, crc_every)
 
 
 class _HffSink(_BitSink):
@@ -395,9 +392,10 @@ def huff_tree_from_stream(fp: BinaryIO, size: int, block_size: int,
         fp, size, min(block_size, _CHUNK), hist_sample))
 
 
-def _stage(timer, name: str, nbytes: int):
-    """``timer.stage(name, nbytes)``, or no timing without a timer."""
-    return timer.stage(name, nbytes) if timer is not None else _NO_TIMING
+def _timed(timer):
+    """``tracing(timer)`` for a writer given a ``timer``; without one the
+    active tracer, if any, stays."""
+    return tracing(timer) if timer is not None else contextlib.nullcontext()
 
 
 def _host_tree(bw: ByteWeights, max_code_len: int | None) -> HuffTree:
@@ -504,14 +502,15 @@ def read_compress_write_host(
     limited to ``max_code_len`` bits.  A ``tree`` with no code for some
     byte of the file raises :class:`CompressError`.  Pass 2 encodes piece
     k on a worker thread while piece k-1 is written.  A ``timer``
-    (:class:`tpuhuff_torch.profiling.StageTimer`) records the stages
-    ``histogram`` and ``write``.
+    (:class:`tpuhuff_torch.profiling.StageTimer`) is made the active tracer
+    for the call, and records the stages ``histogram`` and ``write``.
     """
     size = os.path.getsize(src_path)
     step = min(block_size, _CHUNK)
-    with open(src_path, "rb") as src, open(dst_path, "wb") as dst:
+    with _timed(timer), open(src_path, "rb") as src, \
+            open(dst_path, "wb") as dst:
         if tree is None:
-            with _stage(timer, "histogram", size):
+            with span("histogram", size):
                 bw = _weights_from_stream(src, size, step, hist_sample)
             tree = _host_tree(bw, max_code_len)
         sink = _HffSink(dst, tree)
@@ -524,7 +523,7 @@ def read_compress_write_host(
 
         def collect(fut) -> None:
             payload, nbits = fut.result()
-            with _stage(timer, "write", (nbits + 7) // 8):
+            with span("write", (nbits + 7) // 8):
                 sink.write(payload, nbits)
 
         with concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:

@@ -24,18 +24,28 @@ verifies the CRCs.
 Pipelining: launches are asynchronous on the current CUDA stream, host
 buffers are pinned, copies are ``non_blocking``, and the only sync point is
 the collect of the previous chunk (submit k+1, then collect k).
+
+Tracing: each file call is a root span (``compress`` or ``decompress``)
+of the active tracer (:func:`tpuhuff_torch.profiling.tracing`), with spans
+at its stages (``pass1``, ``tree``, ``prelude``, ``tables``, ``header``,
+``submit``, ``collect``, ``sink``, ``crc``), at each host copy into a
+pinned buffer (``pin_copy``) and each new one (``pin_alloc``, with its
+bytes), at each point where the host waits for the card (``sync.slot``,
+``sync.result``, ``sync.fetch``, ``sync.counts``), at each file read and
+write (with their bytes), and in the kernel wrappers (``launch``);
+counters ``h2d_bytes`` and ``d2h_bytes``.  On the CPU, where no copy is
+made, they count the bytes a copy would move.
 """
 
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from .. import native
+from .. import native, profiling
 from ..core.canonical import build_tree_for_device
 from ..core.format import CompressError
 from ..core.tree import HuffTree
@@ -51,6 +61,7 @@ from ..kernels import (
     new_carry,
     stitch_lanes,
 )
+from ..profiling import count, span
 from .host import (
     DEFAULT_BLOCK,
     DEVICE_HF2_BLOCK,
@@ -63,10 +74,9 @@ from .host import (
     _HffSink,
     _pipeline,
     _read_header,
-    _record_call,
     _sampled_pieces,
-    _stage,
     _start_hf2,
+    _timed,
     _weights_from_stream,
     read_decompress_write_hf2_host,
 )
@@ -81,6 +91,28 @@ DEVICE_DECODE_MAX_BLOCK = 2048
 
 _TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8,
                  np.dtype(np.int32): torch.int32}
+
+
+def _open(path: str, mode: str):
+    """``open(path, mode)``; under a tracer the open (an output's
+    truncation) is a ``read`` or ``write`` span, and so is each of the
+    file's reads and writes (:class:`profiling.TracedFile`)."""
+    t = profiling.active()
+    if t is None:
+        return open(path, mode)
+    kind = "read" if mode.startswith("r") else "write"
+    with t.stage(kind):
+        fp = open(path, mode)
+    return profiling.TracedFile(fp, t, kind)
+
+
+def _tables_to(tables, dev: torch.device):
+    """``tables.to(dev)``, its tensors' bytes counted in ``h2d_bytes``."""
+    if profiling.active() is not None:
+        count("h2d_bytes", sum(t.numel() * t.element_size()
+                               for t in vars(tables).values()
+                               if isinstance(t, torch.Tensor)))
+    return tables.to(dev)
 
 
 class _Staging:
@@ -99,10 +131,13 @@ class _Staging:
     def _buffer(self, key, nbytes: int) -> torch.Tensor:
         ev = self._events.pop(key, None)
         if ev is not None:
-            ev.synchronize()
+            with span("sync.slot"):
+                ev.synchronize()
         buf = self._bufs.get(key)
         if buf is None or buf.numel() < nbytes:
-            buf = torch.empty(max(nbytes, 1), dtype=torch.uint8, pin_memory=True)
+            size = max(nbytes, 1)
+            with span("pin_alloc", size):
+                buf = torch.empty(size, dtype=torch.uint8, pin_memory=True)
             self._bufs[key] = buf
         return buf[:nbytes]
 
@@ -115,13 +150,16 @@ class _Staging:
         """Copy a uint8/int32 array to the device (async on CUDA)."""
         arr = np.ascontiguousarray(arr)
         if not self.cuda:
+            count("h2d_bytes", arr.nbytes)
             return torch.from_numpy(arr if arr.flags.writeable else arr.copy())
         host = self._buffer(key, arr.nbytes)
-        host.numpy()[:] = arr.reshape(-1).view(np.uint8)
+        with span("pin_copy"):
+            host.numpy()[:] = arr.reshape(-1).view(np.uint8)
         return self._send(host, key).view(_TORCH_DTYPES[arr.dtype]).view(
             arr.shape)
 
     def _send(self, host: torch.Tensor, key) -> torch.Tensor:
+        count("h2d_bytes", host.numel())
         dev = host.to(self.device, non_blocking=True)
         self._mark(key)
         return dev
@@ -135,21 +173,26 @@ class _Staging:
                else torch.empty(nbytes, dtype=torch.uint8))
         arr = buf.numpy()
         got = src.readinto(memoryview(arr)[:n]) or 0
-        arr[got:] = 0
+        with span("pin_copy"):
+            arr[got:] = 0
         return buf, got
 
     def to_device(self, buf: torch.Tensor, key) -> torch.Tensor:
         """Start copying ``key``'s buffer from :meth:`read_into` to the
         device (the buffer itself on the CPU)."""
-        return self._send(buf, key) if self.cuda else buf
+        if not self.cuda:
+            count("h2d_bytes", buf.numel())
+            return buf
+        return self._send(buf, key)
 
     def d2h(self, t: torch.Tensor, key) -> torch.Tensor:
         """Start copying ``t`` to the host; read it after :meth:`fence`'s
         event has completed."""
+        nbytes = t.numel() * t.element_size()
+        count("d2h_bytes", nbytes)
         if not self.cuda:
             return t
-        host = self._buffer(key, t.numel() * t.element_size())
-        host = host.view(t.dtype).view(t.shape)
+        host = self._buffer(key, nbytes).view(t.dtype).view(t.shape)
         host.copy_(t, non_blocking=True)
         self._mark(key)
         return host
@@ -159,15 +202,18 @@ class _Staging:
         completed, on a stream of its own, so that the copy does not queue
         behind the work enqueued since; waits for it and returns the bytes
         (``t`` itself on the CPU)."""
+        nbytes = t.numel() * t.element_size()
+        count("d2h_bytes", nbytes)
         if not self.cuda:
             return t.numpy()
-        host = self._buffer(key, t.numel() * t.element_size()).view(t.dtype)
+        host = self._buffer(key, nbytes).view(t.dtype)
         if self._side is None:
             self._side = torch.cuda.Stream(self.device)
         self._side.wait_event(after)
         with torch.cuda.stream(self._side):
             host.copy_(t, non_blocking=True)
-        self._side.synchronize()
+        with span("sync.fetch"):
+            self._side.synchronize()
         return host.numpy()
 
     def fence(self):
@@ -226,7 +272,9 @@ class _DeviceBlockEncoder:
 
     def __init__(self, tree: HuffTree, block_len: int, device: torch.device,
                  staging: _Staging, collect_hist: bool = False):
-        self.tables = make_encode_tables(*tree.encode_tables()).to(device)
+        with span("tables"):
+            self.tables = _tables_to(
+                make_encode_tables(*tree.encode_tables()), device)
         self.block_len = block_len
         self.lane = lane_of(block_len)
         self.per_block = block_len // self.lane
@@ -250,53 +298,57 @@ class _DeviceBlockEncoder:
     def __call__(self, data: np.ndarray, slot: int, fresh: bool = False):
         """H2D + kernels + the small D2H for one chunk, without waiting
         for any.  ``data`` is what :meth:`read` returned, or any bytes."""
-        n = data.size
-        nbytes = self._padded(n)
-        buf = self._read.pop(slot, None)
-        if buf is None or buf.numpy().ctypes.data != data.ctypes.data:
-            buf = (self.staging._buffer(("lanes", slot), nbytes)
-                   if self.staging.cuda else torch.empty(nbytes, dtype=torch.uint8))
-            arr = buf.numpy()
-            arr[:n] = data
-            arr[n:nbytes] = 0
-        if fresh:
-            self.carry, self.carry_bits = new_carry(self.device), 0
-        n_lanes = nbytes // self.lane
-        lanes = self.staging.to_device(buf[:nbytes], ("lanes", slot)).view(
-            n_lanes, self.lane)
-        starts = torch.arange(0, nbytes, self.lane, device=self.device)
-        valid = (n - starts).clamp_(0, self.lane).to(torch.int32)
-        out = encode_blocks(lanes, valid, self.tables, self.tables.max_len,
-                            hist_data=lanes if self.collect_hist else None)
-        words, bits, miss = out[:3]
-        payload, self.carry = stitch_lanes(words, bits, self.carry)
-        small = (bits.view(-1, self.per_block).sum(1), miss.sum().view(1))
-        if self.collect_hist:
-            small += (out[3],)
-        host = tuple(self.staging.d2h(t, (name, slot))
-                     for name, t in zip(self.names, small))
-        return host, payload, nbytes - n, slot, self.staging.fence()
+        with span("submit"):
+            n = data.size
+            nbytes = self._padded(n)
+            buf = self._read.pop(slot, None)
+            if buf is None or buf.numpy().ctypes.data != data.ctypes.data:
+                buf = (self.staging._buffer(("lanes", slot), nbytes)
+                       if self.staging.cuda else torch.empty(nbytes, dtype=torch.uint8))
+                arr = buf.numpy()
+                with span("pin_copy"):
+                    arr[:n] = data
+                    arr[n:nbytes] = 0
+            if fresh:
+                self.carry, self.carry_bits = new_carry(self.device), 0
+            n_lanes = nbytes // self.lane
+            lanes = self.staging.to_device(buf[:nbytes], ("lanes", slot)).view(
+                n_lanes, self.lane)
+            starts = torch.arange(0, nbytes, self.lane, device=self.device)
+            valid = (n - starts).clamp_(0, self.lane).to(torch.int32)
+            out = encode_blocks(lanes, valid, self.tables, self.tables.max_len,
+                                hist_data=lanes if self.collect_hist else None)
+            words, bits, miss = out[:3]
+            payload, self.carry = stitch_lanes(words, bits, self.carry)
+            small = (bits.view(-1, self.per_block).sum(1), miss.sum().view(1))
+            if self.collect_hist:
+                small += (out[3],)
+            host = tuple(self.staging.d2h(t, (name, slot))
+                         for name, t in zip(self.names, small))
+            return host, payload, nbytes - n, slot, self.staging.fence()
 
     def collect(self, handle) -> _Chunk:
         """Wait for a submitted chunk and copy back its stream's bytes."""
         host, payload, pad, slot, done = handle
-        if done is not None:
-            done.synchronize()
-        if int(host[1][0]):
-            raise CompressError("letter not found in codes", None)
-        bit_lens = host[0].numpy().astype(np.uint64)  # a copy: slots are reused
-        nbits = int(bit_lens.sum())
-        total = self.carry_bits + nbits
-        stream = self.staging.fetch(payload[: (total + 7) // 8],
-                                    ("payload", slot), done)
-        full, rem = divmod(total, 8)
-        self.carry_bits = rem
-        hist = None
-        if self.collect_hist:
-            hist = host[2].numpy().astype(np.int64)
-            hist[0] -= pad  # the padding lanes' zeros
-        return _Chunk(stream[:full], nbits, int(stream[full]) if rem else 0,
-                      rem, bit_lens, hist)
+        with span("sync.result"):
+            if done is not None:
+                done.synchronize()
+        with span("collect"):
+            if int(host[1][0]):
+                raise CompressError("letter not found in codes", None)
+            bit_lens = host[0].numpy().astype(np.uint64)  # a copy: slots are reused
+            nbits = int(bit_lens.sum())
+            total = self.carry_bits + nbits
+            stream = self.staging.fetch(payload[: (total + 7) // 8],
+                                        ("payload", slot), done)
+            full, rem = divmod(total, 8)
+            self.carry_bits = rem
+            hist = None
+            if self.collect_hist:
+                hist = host[2].numpy().astype(np.int64)
+                hist[0] -= pad  # the padding lanes' zeros
+            return _Chunk(stream[:full], nbits,
+                          int(stream[full]) if rem else 0, rem, bit_lens, hist)
 
 
 def read_compress_write_hf2(
@@ -321,57 +373,77 @@ def read_compress_write_hf2(
     raises :class:`CompressError`.  ``check`` writes the CRC32 column.
     ``collect_hist`` returns the file's exact (256,) int64 histogram,
     counted during pass 2 by the encode launches themselves (K5); else
-    None is returned.
+    None is returned.  ``stats`` is taken for the JAX package's signature
+    and left untouched.
     """
-    dev = _resolve(device)
-    if block_len is None:
-        block_len = DEVICE_HF2_BLOCK
-    size = os.path.getsize(src_path)
-    step, crc_every, span_bytes = _chunk_step(block_len, chunk_bytes, check)
-    staging = _Staging(dev)
-    with open(src_path, "rb") as src, open(dst_path, "wb") as dst:
-        if tree is None:
-            # pass 1: one histogram launch per piece, each adding into the
-            # running int64 counts on the device; one 256-count transfer at
-            # the end
-            acc = torch.zeros(256, dtype=torch.int64, device=dev)
-            for k, piece in enumerate(_sampled_pieces(src, size, step,
-                                                      hist_sample)):
-                histogram(staging.h2d(np.frombuffer(piece, dtype=np.uint8),
-                                      ("hist", k % 2)), out=acc)
+    with profiling.call("compress"):
+        dev = _resolve(device)
+        if block_len is None:
+            block_len = DEVICE_HF2_BLOCK
+        size = os.path.getsize(src_path)
+        step, crc_every, span_bytes = _chunk_step(block_len, chunk_bytes,
+                                                  check)
+        staging = _Staging(dev)
+        with _open(src_path, "rb") as src, _open(dst_path, "wb") as dst:
+            if tree is None:
+                tree = _pass1_tree(src, size, step, hist_sample,
+                                   max_code_len, staging, dev)
+            tree, sink = _start_hf2(dst, tree, size, block_len, canonical,
+                                    crc_every)
+            # pass 2: chunk k+1 is read, copied and launched (its stitch
+            # too) before chunk k's bytes are copied back and written
+            src.seek(0)
+            encoder = _DeviceBlockEncoder(tree, block_len, dev, staging,
+                                          collect_hist)
+            hist = np.zeros(256, dtype=np.int64) if collect_hist else None
+
+            def submit(data: np.ndarray, slot: int):
+                handle = encoder(data, slot)
+                crcs = None
+                if crc_every:
+                    with span("crc"):
+                        crcs = native.crc32_blocks(data, span_bytes)
+                return handle, crcs
+
+            def collect(pending) -> None:
+                handle, crcs = pending
+                c = encoder.collect(handle)
+                if c.hist is not None:
+                    with span("collect"):
+                        hist[:] += c.hist
+                with span("sink"):
+                    sink.write_aligned(c.full, c.nbits, c.partial,
+                                       c.partial_bits, c.bit_lens, crcs)
+
+            _pipeline(src, size, step, submit, collect,
+                      lambda n, slot: encoder.read(src, n, slot))
+            with span("sink"):
+                sink.finish()
+        return hist
+
+
+def _pass1_tree(src, size: int, step: int, hist_sample: int,
+                max_code_len: int | None, staging: _Staging,
+                dev: torch.device) -> HuffTree:
+    """Pass 1 of :func:`read_compress_write_hf2` (span ``pass1``): one
+    histogram launch per piece, each adding into the running int64 counts
+    on the device, and one 256-count transfer at the end; then the
+    length-limited tree (span ``tree``)."""
+    with span("pass1"):
+        acc = torch.zeros(256, dtype=torch.int64, device=dev)
+        for k, piece in enumerate(_sampled_pieces(src, size, step,
+                                                  hist_sample)):
+            histogram(staging.h2d(np.frombuffer(piece, dtype=np.uint8),
+                                  ("hist", k % 2)), out=acc)
+        piece = None  # the last piece's memory is freed in pass 1
+        with span("sync.counts"):
             counts = acc.cpu().numpy()
-            if max(1, int(hist_sample)) > 1 and size > 0:
-                counts = counts + 1  # every byte gets a code
-            ml_cap = 32 if max_code_len is None else min(max_code_len, 32)
-            tree, _limited = build_tree_for_device(ByteWeights(counts),
-                                                   max_len=ml_cap)
-        tree, sink = _start_hf2(dst, tree, size, block_len, canonical,
-                                crc_every)
-        # pass 2: chunk k+1 is read, copied and launched (its stitch too)
-        # before chunk k's bytes are copied back and written
-        src.seek(0)
-        encoder = _DeviceBlockEncoder(tree, block_len, dev, staging,
-                                      collect_hist)
-        hist = np.zeros(256, dtype=np.int64) if collect_hist else None
-
-        def submit(data: np.ndarray, slot: int):
-            handle = encoder(data, slot)
-            crcs = native.crc32_blocks(data, span_bytes) if crc_every else None
-            return handle, crcs, time.perf_counter()
-
-        def collect(pending) -> None:
-            handle, crcs, t0 = pending
-            c = encoder.collect(handle)
-            _record_call(stats, time.perf_counter() - t0)
-            if c.hist is not None:
-                hist[:] += c.hist
-            sink.write_aligned(c.full, c.nbits, c.partial, c.partial_bits,
-                               c.bit_lens, crcs)
-
-        _pipeline(src, size, step, submit, collect,
-                  lambda n, slot: encoder.read(src, n, slot))
-        sink.finish()
-    return hist
+        count("d2h_bytes", counts.nbytes)
+    with span("tree"):
+        if max(1, int(hist_sample)) > 1 and size > 0:
+            counts = counts + 1  # every byte gets a code
+        ml_cap = 32 if max_code_len is None else min(max_code_len, 32)
+        return build_tree_for_device(ByteWeights(counts), max_len=ml_cap)[0]
 
 
 def read_compress_write(
@@ -390,42 +462,45 @@ def read_compress_write(
     ``min(max_code_len, 32)`` bits, not canonicalised.  Pass 2 encodes each
     piece as 256-byte lanes with :func:`encode_blocks` (K1), piece k+1
     launched before piece k is stitched and written; a byte with no code
-    raises :class:`CompressError`.  ``stats["device_call_s"]`` gets each
-    piece's submit-to-collect wall time.  A ``timer``
-    (:class:`tpuhuff_torch.profiling.StageTimer`) records the stages
-    ``histogram`` (pass 1), ``pack`` (lanes, copies and launch, with the
-    piece's bytes; then the wait and the host stitch) and ``write``.
+    raises :class:`CompressError`.  A ``timer``
+    (:class:`tpuhuff_torch.profiling.StageTimer`) is made the active tracer
+    for the call; besides the spans of :mod:`this module <.stream>` it
+    records the stages ``histogram`` (pass 1) and ``pack`` (lanes, copies
+    and launch, with the piece's bytes; then the wait and the copy back).
+    ``stats`` is taken for the JAX package's signature and left untouched.
     """
-    dev = _resolve(device)
-    size = os.path.getsize(src_path)
-    step = min(block_size, _CHUNK)
-    with open(src_path, "rb") as src, open(dst_path, "wb") as dst:
-        if tree is None:
-            with _stage(timer, "histogram", size):
-                bw = _weights_from_stream(src, size, step, hist_sample)
-            cap = 32 if max_code_len is None else min(max_code_len, 32)
-            tree, _limited = build_tree_for_device(bw, max_len=cap)
-        sink = _HffSink(dst, tree)
-        src.seek(0)
-        encoder = _DeviceBlockEncoder(tree, DEVICE_HF2_BLOCK, dev,
-                                      _Staging(dev))
+    with _timed(timer), profiling.call("compress"):
+        dev = _resolve(device)
+        size = os.path.getsize(src_path)
+        step = min(block_size, _CHUNK)
+        with _open(src_path, "rb") as src, _open(dst_path, "wb") as dst:
+            if tree is None:
+                with span("histogram", size):
+                    bw = _weights_from_stream(src, size, step, hist_sample)
+                cap = 32 if max_code_len is None else min(max_code_len, 32)
+                with span("tree"):
+                    tree, _limited = build_tree_for_device(bw, max_len=cap)
+            with span("prelude"):
+                sink = _HffSink(dst, tree)
+            src.seek(0)
+            encoder = _DeviceBlockEncoder(tree, DEVICE_HF2_BLOCK, dev,
+                                          _Staging(dev))
 
-        def submit(data: np.ndarray, slot: int):
-            with _stage(timer, "pack", data.size):
-                handle = encoder(data, slot)
-            return handle, time.perf_counter()
+            def submit(data: np.ndarray, slot: int):
+                with span("pack", data.size):
+                    return encoder(data, slot)
 
-        def collect(pending) -> None:
-            handle, t0 = pending
-            with _stage(timer, "pack", 0):
-                c = encoder.collect(handle)
-            _record_call(stats, time.perf_counter() - t0)
-            with _stage(timer, "write", c.full.size):
-                sink.write_aligned(c.full, c.nbits, c.partial, c.partial_bits)
+            def collect(handle) -> None:
+                with span("pack", 0):
+                    c = encoder.collect(handle)
+                with span("sink"):
+                    sink.write_aligned(c.full, c.nbits, c.partial,
+                                       c.partial_bits)
 
-        _pipeline(src, size, step, submit, collect,
-                  lambda n, slot: encoder.read(src, n, slot))
-        sink.finish()
+            _pipeline(src, size, step, submit, collect,
+                      lambda n, slot: encoder.read(src, n, slot))
+            with span("sink"):
+                sink.finish()
 
 
 def read_decompress_write_hf2(
@@ -444,37 +519,44 @@ def read_decompress_write_hf2(
     the tree itself and not from the container's flag, decode with
     :func:`decode_rows`; any other tree with :func:`decode_rows_general`.
     ``check`` verifies the CRC32 column, raising
-    ``StreamError(kind="CorruptData")`` on a mismatch.
+    ``StreamError(kind="CorruptData")`` on a mismatch.  ``stats`` is taken
+    for the JAX package's signature and left untouched.
     """
-    dev = _resolve(device)
-    chunk = chunk_bytes if chunk_bytes is not None else _CHUNK
-    with open(src_path, "rb") as src, open(dst_path, "wb") as dst:
-        hdr = _read_header(src, src_path)
-        on_host = (hdr.orig_len == 0 or hdr.tree.is_leaf(hdr.tree.root)
-                   or hdr.block_len > DEVICE_DECODE_MAX_BLOCK)
-        if not on_host:
-            _decode_groups(hdr, src, dst, src_path, dev, chunk, stats, check)
-            return
-    read_decompress_write_hf2_host(src_path, dst_path, chunk_bytes=chunk_bytes,
-                                   check=check, threads=threads)
+    with profiling.call("decompress"):
+        dev = _resolve(device)
+        chunk = chunk_bytes if chunk_bytes is not None else _CHUNK
+        with _open(src_path, "rb") as src, _open(dst_path, "wb") as dst:
+            with span("header"):
+                hdr = _read_header(src, src_path)
+            on_host = (hdr.orig_len == 0 or hdr.tree.is_leaf(hdr.tree.root)
+                       or hdr.block_len > DEVICE_DECODE_MAX_BLOCK)
+            if not on_host:
+                _decode_groups(hdr, src, dst, src_path, dev, chunk, check)
+                return
+        read_decompress_write_hf2_host(src_path, dst_path,
+                                       chunk_bytes=chunk_bytes, check=check,
+                                       threads=threads)
 
 
 def _decode_groups(hdr, src, dst, src_path: str, dev: torch.device,
-                   chunk: int, stats: dict | None, check: bool) -> None:
+                   chunk: int, check: bool) -> None:
     """The device branch of :func:`read_decompress_write_hf2`."""
-    _check_sizes(hdr, src_path)
-    starts, ends = _block_bits(hdr, src_path)
-    decode, tables = decoder_for(hdr.tree)
-    tables = tables.to(dev)
-    verifier = None
-    if check and hdr.crcs is not None and hdr.crc_every:
-        verifier = _CrcVerifier(hdr.crcs, hdr.crc_every * hdr.block_len,
-                                src_path)
+    with span("header"):
+        _check_sizes(hdr, src_path)
+        starts, ends = _block_bits(hdr, src_path)
+        verifier = None
+        if check and hdr.crcs is not None and hdr.crc_every:
+            verifier = _CrcVerifier(hdr.crcs, hdr.crc_every * hdr.block_len,
+                                    src_path)
+    with span("tables"):
+        decode, tables = decoder_for(hdr.tree)
+        tables = _tables_to(tables, dev)
 
     def emit(piece: np.ndarray) -> None:
         dst.write(piece)
         if verifier is not None:
-            verifier.feed(piece)
+            with span("crc"):
+                verifier.feed(piece)
 
     B = hdr.num_blocks
     gsize = max(1024, chunk // hdr.block_len)  # blocks per group
@@ -483,42 +565,46 @@ def _decode_groups(hdr, src, dst, src_path: str, dev: torch.device,
     def submit_group(g0: int, slot: int):
         """Read + H2D of the group's payload bytes, then the row gather S2
         and the decoder on the device, and the D2H of the output."""
-        g1 = min(g0 + gsize, B)
-        byte_lo = int(starts[g0]) // 8
-        nbytes = (int(ends[g1 - 1]) + 7) // 8 - byte_lo
-        src.seek(hdr.payload_offset + byte_lo)
-        buf, got = staging.read_into(src, nbytes, nbytes, ("payload", slot))
-        if got < nbytes:
-            raise StreamError(f"{src_path!r} truncated payload",
-                              "MissingHeaderInfo")
-        ls = (starts[g0:g1] - np.uint64(byte_lo * 8)).astype(np.int64)
-        le = (ends[g0:g1] - np.uint64(byte_lo * 8)).astype(np.int64)
-        rows, bit0 = lane_rows(staging.to_device(buf, ("payload", slot)),
-                               ls, le)
-        out = decode(
-            rows, bit0,
-            staging.h2d((le - ls).astype(np.int32), ("nbits", slot)),
-            tables, hdr.block_len)
-        last = (hdr.orig_len - (B - 1) * hdr.block_len if g1 == B
-                else hdr.block_len)
-        return staging.d2h(out, ("out", slot)), last, staging.fence()
+        with span("submit"):
+            g1 = min(g0 + gsize, B)
+            byte_lo = int(starts[g0]) // 8
+            nbytes = (int(ends[g1 - 1]) + 7) // 8 - byte_lo
+            src.seek(hdr.payload_offset + byte_lo)
+            buf, got = staging.read_into(src, nbytes, nbytes,
+                                         ("payload", slot))
+            if got < nbytes:
+                raise StreamError(f"{src_path!r} truncated payload",
+                                  "MissingHeaderInfo")
+            ls = (starts[g0:g1] - np.uint64(byte_lo * 8)).astype(np.int64)
+            le = (ends[g0:g1] - np.uint64(byte_lo * 8)).astype(np.int64)
+            rows, bit0 = lane_rows(staging.to_device(buf, ("payload", slot)),
+                                   ls, le)
+            out = decode(
+                rows, bit0,
+                staging.h2d((le - ls).astype(np.int32), ("nbits", slot)),
+                tables, hdr.block_len)
+            last = (hdr.orig_len - (B - 1) * hdr.block_len if g1 == B
+                    else hdr.block_len)
+            return staging.d2h(out, ("out", slot)), last, staging.fence()
 
     pending = None
     for k, g0 in enumerate(list(range(0, B, gsize)) + [None]):
         handle = None
         if g0 is not None:
-            handle = (submit_group(g0, k % 2), time.perf_counter())
+            handle = submit_group(g0, k % 2)
         if pending is not None:
-            (out, last, done), t0 = pending
-            if done is not None:
-                done.synchronize()
-            out = out.numpy()
-            _record_call(stats, time.perf_counter() - t0)
-            if last != hdr.block_len:
-                emit(out[:-1].reshape(-1))
-                emit(out[-1, :last])
-            else:
-                emit(out.reshape(-1))
+            out, last, done = pending
+            with span("sync.result"):
+                if done is not None:
+                    done.synchronize()
+            with span("collect"):
+                out = out.numpy()
+                if last != hdr.block_len:
+                    emit(out[:-1].reshape(-1))
+                    emit(out[-1, :last])
+                else:
+                    emit(out.reshape(-1))
         pending = handle
     if verifier is not None:
-        verifier.finish()
+        with span("crc"):
+            verifier.finish()

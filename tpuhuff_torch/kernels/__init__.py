@@ -24,7 +24,9 @@ sum in PyTorch on the data's device (XLA, not Pallas, in the JAX package);
 
 A wrapper launches its kernel for CUDA tensors and runs its plain version
 (``*_reference``) for CPU tensors; ``<wrapper>.launches`` counts the kernel
-launches.  The kernels are compiled at first use, never at import.
+launches, and the CUDA branch is a ``launch`` span of the active tracer
+(:mod:`tpuhuff_torch.profiling`).  The kernels are compiled at first use,
+never at import.
 """
 
 from .decode import (

@@ -42,6 +42,7 @@ import torch
 from .. import native
 from ..core.canonical import canonical_codes_from_lengths
 from ..core.tree import HuffTree
+from ..profiling import count, span
 from . import _build
 from .encode import _i64_to_i32, as_i32
 
@@ -357,21 +358,22 @@ def lane_rows(payload: torch.Tensor, start_bits, end_bits
         return lane_rows_reference(payload, start_bits, end_bits)
     if payload.device.type != "cuda":
         raise ValueError(f"unsupported device {payload.device}")
-    starts, width = _row_layout(start_bits, end_bits)
-    B = starts.size
-    if B * width >= 1 << 31:
-        raise ValueError(f"{B} rows of {width} words exceed one launch")
-    dev = payload.device
-    rows = torch.empty((B, width), dtype=torch.int32, device=dev)
-    bit0 = torch.empty(B, dtype=torch.int32, device=dev)
-    if B == 0:
+    with span("launch"):
+        starts, width = _row_layout(start_bits, end_bits)
+        B = starts.size
+        if B * width >= 1 << 31:
+            raise ValueError(f"{B} rows of {width} words exceed one launch")
+        dev = payload.device
+        rows = torch.empty((B, width), dtype=torch.int32, device=dev)
+        bit0 = torch.empty(B, dtype=torch.int32, device=dev)
+        if B == 0:
+            return rows, bit0
+        dstarts = _starts_to_device(starts, dev)
+        _build.launch("tpuhuff_lane_rows", dev, payload.data_ptr(),
+                      payload.numel(), dstarts.data_ptr(), rows.data_ptr(),
+                      bit0.data_ptr(), B, width)
+        lane_rows.launches += 1
         return rows, bit0
-    dstarts = _starts_to_device(starts, dev)
-    _build.launch("tpuhuff_lane_rows", dev, payload.data_ptr(),
-                  payload.numel(), dstarts.data_ptr(), rows.data_ptr(),
-                  bit0.data_ptr(), B, width)
-    lane_rows.launches += 1
-    return rows, bit0
 
 
 lane_rows.launches = 0
@@ -384,12 +386,16 @@ def _starts_to_device(starts: np.ndarray, dev: torch.device) -> torch.Tensor:
     allocation per call costs milliseconds of host time)."""
     buf, done = _staged.get(dev, (None, None))
     if done is not None:
-        done.synchronize()
+        with span("sync.slot"):
+            done.synchronize()
     if buf is None or buf.numel() < starts.nbytes:
-        buf = torch.empty(max(starts.nbytes, 1 << 20), dtype=torch.uint8,
-                          pin_memory=True)
+        nbytes = max(starts.nbytes, 1 << 20)
+        with span("pin_alloc", nbytes):
+            buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
     host = buf[: starts.nbytes].view(torch.int64)
-    host.numpy()[:] = starts
+    with span("pin_copy"):
+        host.numpy()[:] = starts
+    count("h2d_bytes", starts.nbytes)
     out = host.to(dev, non_blocking=True)
     done = torch.cuda.Event()
     done.record(torch.cuda.current_stream(dev))
@@ -481,16 +487,17 @@ def decode_rows(rows: torch.Tensor, bit0: torch.Tensor, nbits: torch.Tensor,
         return decode_rows_reference(rows, bit0, nbits, tables, block_len)
     if rows.device.type != "cuda":
         raise ValueError(f"unsupported device {rows.device}")
-    out = torch.empty((B, block_len), dtype=torch.uint8, device=rows.device)
-    route = ctypes.c_int(0)
-    _build.launch("tpuhuff_decode_rows", rows.device, rows.data_ptr(),
-                  bit0.data_ptr(), nbits.data_ptr(), tables.ub.data_ptr(),
-                  tables.dd.data_ptr(), tables.perm.data_ptr(),
-                  tables.lut.data_ptr(), out.data_ptr(), B, W, int(block_len),
-                  tables.max_len, ctypes.addressof(route))
-    decode_rows.launches += 1
-    decode_rows.global_launches += route.value
-    return out
+    with span("launch"):
+        out = torch.empty((B, block_len), dtype=torch.uint8, device=rows.device)
+        route = ctypes.c_int(0)
+        _build.launch("tpuhuff_decode_rows", rows.device, rows.data_ptr(),
+                      bit0.data_ptr(), nbits.data_ptr(), tables.ub.data_ptr(),
+                      tables.dd.data_ptr(), tables.perm.data_ptr(),
+                      tables.lut.data_ptr(), out.data_ptr(), B, W, int(block_len),
+                      tables.max_len, ctypes.addressof(route))
+        decode_rows.launches += 1
+        decode_rows.global_launches += route.value
+        return out
 
 
 decode_rows.launches = 0         # K2, both routes
@@ -541,16 +548,17 @@ def decode_rows_general(rows: torch.Tensor, bit0: torch.Tensor,
                                              block_len)
     if rows.device.type != "cuda":
         raise ValueError(f"unsupported device {rows.device}")
-    out = torch.empty((B, block_len), dtype=torch.uint8, device=rows.device)
-    route = ctypes.c_int(0)
-    _build.launch("tpuhuff_decode_rows_general", rows.device, rows.data_ptr(),
-                  bit0.data_ptr(), nbits.data_ptr(), tables.thr.data_ptr(),
-                  tables.sym.data_ptr(), tables.len.data_ptr(),
-                  tables.lut.data_ptr(), out.data_ptr(), B, W, int(block_len),
-                  ctypes.addressof(route))
-    decode_rows_general.launches += 1
-    decode_rows_general.global_launches += route.value
-    return out
+    with span("launch"):
+        out = torch.empty((B, block_len), dtype=torch.uint8, device=rows.device)
+        route = ctypes.c_int(0)
+        _build.launch("tpuhuff_decode_rows_general", rows.device, rows.data_ptr(),
+                      bit0.data_ptr(), nbits.data_ptr(), tables.thr.data_ptr(),
+                      tables.sym.data_ptr(), tables.len.data_ptr(),
+                      tables.lut.data_ptr(), out.data_ptr(), B, W, int(block_len),
+                      ctypes.addressof(route))
+        decode_rows_general.launches += 1
+        decode_rows_general.global_launches += route.value
+        return out
 
 
 decode_rows_general.launches = 0         # K4, both routes

@@ -22,6 +22,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..profiling import span
 from . import _build
 
 __all__ = [
@@ -157,22 +158,23 @@ def encode_blocks(lanes: torch.Tensor, valid_lens: torch.Tensor,
                                        hist_data)
     if lanes.device.type != "cuda":
         raise ValueError(f"unsupported device {lanes.device}")
-    dev = lanes.device
-    words = torch.empty((B, R), dtype=torch.int32, device=dev)
-    bits = torch.empty(B, dtype=torch.int32, device=dev)
-    miss = torch.empty(B, dtype=torch.int32, device=dev)
-    args = (lanes.data_ptr(), valid_lens.data_ptr(), tables.lens.data_ptr(),
-            tables.acodes.data_ptr(), words.data_ptr(), bits.data_ptr(),
-            miss.data_ptr(), B, N, R)
-    if hist_data is None:
-        _build.launch("tpuhuff_encode_lanes", dev, *args)
-        encode_blocks.launches += 1
-        return words, bits, miss
-    counts = torch.zeros(256, dtype=torch.int64, device=dev)
-    _build.launch("tpuhuff_encode_lanes_hist", dev, *args,
-                  hist_data.data_ptr(), hist_data.numel(), counts.data_ptr())
-    encode_blocks.hist_launches += 1
-    return words, bits, miss, counts
+    with span("launch"):
+        dev = lanes.device
+        words = torch.empty((B, R), dtype=torch.int32, device=dev)
+        bits = torch.empty(B, dtype=torch.int32, device=dev)
+        miss = torch.empty(B, dtype=torch.int32, device=dev)
+        args = (lanes.data_ptr(), valid_lens.data_ptr(), tables.lens.data_ptr(),
+                tables.acodes.data_ptr(), words.data_ptr(), bits.data_ptr(),
+                miss.data_ptr(), B, N, R)
+        if hist_data is None:
+            _build.launch("tpuhuff_encode_lanes", dev, *args)
+            encode_blocks.launches += 1
+            return words, bits, miss
+        counts = torch.zeros(256, dtype=torch.int64, device=dev)
+        _build.launch("tpuhuff_encode_lanes_hist", dev, *args,
+                      hist_data.data_ptr(), hist_data.numel(), counts.data_ptr())
+        encode_blocks.hist_launches += 1
+        return words, bits, miss, counts
 
 
 encode_blocks.launches = 0       # K1

@@ -11,6 +11,7 @@ import ctypes
 
 import torch
 
+from ..profiling import span
 from . import _build
 
 __all__ = ["histogram", "histogram_grid", "histogram_reference"]
@@ -32,21 +33,22 @@ def histogram(data: torch.Tensor, out: torch.Tensor | None = None
         return histogram_reference(data, out)
     if data.device.type != "cuda":
         raise ValueError(f"unsupported device {data.device}")
-    if out is not None:
-        _build.check_tensor(out, "out", torch.int64, (256,), data.device)
-    if not data.is_contiguous():
-        raise ValueError("data must be contiguous")
-    n = data.numel()
-    if n >= _MAX_BYTES:
-        raise ValueError(f"histogram of {n} bytes exceeds one launch")
-    if out is None:
-        out = torch.zeros(256, dtype=torch.int64, device=data.device)
-    if n == 0:
+    with span("launch"):
+        if out is not None:
+            _build.check_tensor(out, "out", torch.int64, (256,), data.device)
+        if not data.is_contiguous():
+            raise ValueError("data must be contiguous")
+        n = data.numel()
+        if n >= _MAX_BYTES:
+            raise ValueError(f"histogram of {n} bytes exceeds one launch")
+        if out is None:
+            out = torch.zeros(256, dtype=torch.int64, device=data.device)
+        if n == 0:
+            return out
+        _build.launch("tpuhuff_hist256", data.device, data.data_ptr(), n,
+                      out.data_ptr())
+        histogram.launches += 1
         return out
-    _build.launch("tpuhuff_hist256", data.device, data.data_ptr(), n,
-                  out.data_ptr())
-    histogram.launches += 1
-    return out
 
 
 histogram.launches = 0

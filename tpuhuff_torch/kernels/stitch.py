@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..profiling import span
 from . import _build
 
 __all__ = ["new_carry", "stitch_lanes", "stitch_lanes_reference",
@@ -69,17 +70,18 @@ def stitch_lanes(words: torch.Tensor, bits: torch.Tensor,
         return stitch_lanes_reference(words, bits, carry)
     if words.device.type != "cuda":
         raise ValueError(f"unsupported device {words.device}")
-    if B * R >= 1 << 31:
-        raise ValueError(f"{B} x {R} words exceed one launch")
-    dev = words.device
-    ends = torch.cumsum(bits, 0, dtype=torch.int64)
-    out = torch.zeros(stitch_capacity(B, R), dtype=torch.uint8, device=dev)
-    carry_out = torch.empty(2, dtype=torch.int32, device=dev)
-    _build.launch("tpuhuff_stitch_lanes", dev, words.data_ptr(),
-                  bits.data_ptr(), ends.data_ptr(), carry.data_ptr(),
-                  out.data_ptr(), carry_out.data_ptr(), B, R)
-    stitch_lanes.launches += 1
-    return out, carry_out
+    with span("launch"):
+        if B * R >= 1 << 31:
+            raise ValueError(f"{B} x {R} words exceed one launch")
+        dev = words.device
+        ends = torch.cumsum(bits, 0, dtype=torch.int64)
+        out = torch.zeros(stitch_capacity(B, R), dtype=torch.uint8, device=dev)
+        carry_out = torch.empty(2, dtype=torch.int32, device=dev)
+        _build.launch("tpuhuff_stitch_lanes", dev, words.data_ptr(),
+                      bits.data_ptr(), ends.data_ptr(), carry.data_ptr(),
+                      out.data_ptr(), carry_out.data_ptr(), B, R)
+        stitch_lanes.launches += 1
+        return out, carry_out
 
 
 stitch_lanes.launches = 0
