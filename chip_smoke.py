@@ -694,11 +694,16 @@ class host_stages_forbidden:
             setattr(owner, name, fn)
 
 
-def pass1_pieces(src: str, chunk_bytes: int | None = None) -> int:
-    """The pieces pass 1 of the ``.hf2`` writer reads ``src`` in."""
+def pass1_pieces(src: str, chunk_bytes: int | None = None,
+                 hist_sample: int = 1) -> int:
+    """The pieces pass 1 of the ``.hf2`` writer reads ``src`` in: its
+    chunks, or with ``hist_sample > 1`` pieces of at most
+    ``_PASS1_PIECE``."""
     from tpuhuff_torch.io.host import _PASS1_PIECE, _chunk_step
 
-    piece = min(_chunk_step(LANE, chunk_bytes, True)[0], _PASS1_PIECE)
+    piece = _chunk_step(LANE, chunk_bytes, True)[0]
+    if hist_sample > 1:
+        piece = min(piece, _PASS1_PIECE)
     return -(-os.path.getsize(src) // piece)
 
 
@@ -1206,9 +1211,11 @@ def main() -> None:
         decompress_dataset,
         read_compress_write_hf2,
         read_decompress_write_hf2,
+        stream,
         tree_from_counts,
     )
     from tpuhuff_torch.io.hff import read_hf2_header
+    from tpuhuff_torch.profiling import StageTimer, tracing
     from tpuhuff_torch.io.host import (
         read_compress_write_host,
         read_compress_write_hf2_host,
@@ -1861,11 +1868,21 @@ def main() -> None:
                 f"writer's, decode restores the source")
             return dst
 
-        # (a) canonical containers: K1, K2, K3
+        # (a) canonical containers: K1, K2, K3; each file fits on the
+        # card, so the writer reads it once and encodes from its copy
         reset()
-        for name in ("textlike", "random", "fib"):
-            round_trip(name, "canonical")
+        traced = StageTimer()
+        with tracing(traced):
+            for name in ("textlike", "random", "fib"):
+                round_trip(name, "canonical")
         launches = read()
+        resident = [r.counters["resident_bytes"].n for r in traced.records
+                    if r.op == "compress" and "resident_bytes" in r.counters]
+        sizes = [os.path.getsize(os.path.join(work, f"{name}.bin"))
+                 for name in ("textlike", "random", "fib")]
+        if resident != sizes:
+            fail(f"4a: the canonical writes encoded {resident} bytes from "
+                 f"the card's copy, not their files' {sizes}")
         log(f"phase 4a: launches during the canonical path: {launches}")
         if not all(launches[k] for k in ("encode", "decode", "histogram")):
             fail(f"a kernel of the canonical path never launched: {launches}")
@@ -1888,6 +1905,35 @@ def main() -> None:
         log(f"phase 4a: S1 once per pass-2 chunk ({chunks} chunks), S2 once "
             f"per decode group ({groups} groups); no host stitch, shifting "
             "sink write, lane padding or host row gather ran")
+        # the two-pass route: no room on the card, and a sampled pass 1;
+        # pass 2 reads the file again
+        textlike = os.path.join(work, "textlike.bin")
+        reset()
+        traced = StageTimer()
+        with tracing(traced):
+            free_bytes = stream._device_free_bytes
+            stream._device_free_bytes = lambda dev: 0
+            try:
+                round_trip("textlike", "two_pass")
+            finally:
+                stream._device_free_bytes = free_bytes
+            round_trip("textlike", "sampled", hist_sample=4)
+        launches = read()
+        if any("resident_bytes" in r.counters for r in traced.records):
+            fail("4a: a two-pass write encoded from a copy on the card")
+        reads = [r.spans["read"].bytes for r in traced.records
+                 if r.op == "compress"]
+        if reads != [2 * os.path.getsize(textlike)] * 2:
+            fail(f"4a: the two-pass writes read {reads} bytes, not their "
+                 "file twice each")
+        pieces = pass1_pieces(textlike) + pass1_pieces(textlike,
+                                                       hist_sample=4)
+        if launches["histogram"] != pieces:
+            fail(f"4a: the two-pass pass 1 launched K3 "
+                 f"{launches['histogram']} times for {pieces} pieces")
+        log(f"phase 4a: two-pass route (no room on the card; hist_sample 4):"
+            f" containers equal the host writer's, K3 once per piece "
+            f"({pieces} pieces), the file read twice")
         pass1_trace(work)
         # (b) non-canonical containers: K4.  The Fibonacci file's own tree
         # is length-limited, hence canonical by construction, so its

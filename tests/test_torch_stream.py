@@ -5,8 +5,11 @@ byte-identical to ``tpuhuff.io.stream.read_compress_write_hf2(device=True)``
 and to the host C++ writer, and each package must read the other's files.
 """
 
+import os
+
 import numpy as np
 import pytest
+import torch
 
 from tpuhuff.core.canonical import canonicalize
 from tpuhuff.core.tree import HuffTree
@@ -18,7 +21,8 @@ from tpuhuff_torch.core.format import CompressError
 from tpuhuff_torch.core.tree import HuffTree as PortTree
 from tpuhuff_torch.core.weights import ByteWeights as PortWeights
 from tpuhuff_torch.io import read_compress_write_hf2, read_decompress_write_hf2
-from tpuhuff_torch.io.host import StreamError
+from tpuhuff_torch.io.host import StreamError, _chunk_step
+from tpuhuff_torch.profiling import StageTimer, tracing
 
 
 def _data(n, seed):
@@ -173,6 +177,139 @@ def test_hf2_small_chunks_carry_bits_across_boundaries(tmp_path, n, opts):
     out = str(tmp_path / "p.out")
     read_decompress_write_hf2(port, out, device="cpu", chunk_bytes=4096)
     assert open(out, "rb").read() == data.tobytes()
+
+
+@pytest.mark.parametrize("n,opts", [
+    (4109, {"block_len": 256, "collect_hist": True}),
+    (300_000, {"block_len": 256, "check": False, "chunk_bytes": 5 * 256}),
+    (300_000, {"block_len": 1000, "check": False, "chunk_bytes": 3000}),
+    (600_001, {"block_len": 256, "check": True, "chunk_bytes": 64 * 1024}),
+    (300_001, {"block_len": 1000, "check": True, "chunk_bytes": 3000}),
+    (300_000, {"block_len": 256, "canonical": False,
+               "chunk_bytes": 64 * 1024}),
+])
+def test_hf2_resident_route_byte_identical(tmp_path, monkeypatch, n, opts):
+    """The route that reads the file once and encodes from its device
+    copy, forced on the CPU: one chunk with a partial last block, small
+    chunks with and without the CRC column (a partial last chunk, bits
+    carried across each boundary), non-canonical codes.  The two-pass
+    route's bytes and the JAX device writer's, and the reader restores
+    the source."""
+    from tpuhuff_torch.io import stream as port_stream
+
+    src, data = _src(tmp_path, n, seed=9)
+    two, res, dev = (str(tmp_path / f"{k}.hf2") for k in ("t", "r", "d"))
+    hist_two = read_compress_write_hf2(src, two, device="cpu", **opts)
+    monkeypatch.setattr(port_stream, "_resident", lambda *a: True)
+    t = StageTimer()
+    with tracing(t):
+        hist = read_compress_write_hf2(src, res, device="cpu", **opts)
+    if opts.get("collect_hist"):  # the last block's padding is not counted
+        assert (hist == hist_two).all()
+        assert (hist == np.bincount(data, minlength=256)).all()
+    rec, = t.records
+    assert rec.counters["resident_bytes"].n == n
+    assert rec.spans["read"].bytes == n  # pass 1 alone reads the file
+    kw = {k: v for k, v in opts.items() if k != "chunk_bytes"}
+    jax_stream.read_compress_write_hf2(src, dev, device=True, **kw)
+    got = open(res, "rb").read()
+    assert got == open(two, "rb").read()
+    assert got == open(dev, "rb").read()
+    step = _chunk_step(opts["block_len"], opts.get("chunk_bytes"),
+                       opts.get("check", True))[0] // opts["block_len"]
+    carries = _boundary_carries(res, step)
+    if "chunk_bytes" in opts and not opts.get("check", True):
+        assert carries >= set(range(1, 8))
+    elif "chunk_bytes" in opts:
+        assert len(carries - {0}) >= 1
+    else:
+        assert carries == set()  # one chunk
+    out = str(tmp_path / "r.out")
+    read_decompress_write_hf2(res, out, device="cpu", chunk_bytes=4096)
+    assert open(out, "rb").read() == data.tobytes()
+
+
+@pytest.mark.parametrize("case", ["tree", "sampled", "cpu", "over_budget",
+                                  "at_budget"])
+def test_hf2_route_choice(tmp_path, monkeypatch, case):
+    """The two-pass route runs, with ``resident_bytes`` at 0, when a tree
+    is given, when pass 1 samples, on the CPU (no free device memory),
+    and when the padded file takes more than half the free memory; at
+    half, the file is kept on the device and each byte is read once."""
+    from tpuhuff_torch.io import stream as port_stream
+
+    n, block = 70_001, 256
+    src, data = _src(tmp_path, n, seed=10)
+    padded = -(-n // block) * block
+    free = {"tree": 1 << 40, "sampled": 1 << 40, "cpu": None,
+            "over_budget": 2 * padded - 1, "at_budget": 2 * padded}[case]
+    if free is not None:
+        monkeypatch.setattr(port_stream, "_device_free_bytes",
+                            lambda dev: free)
+    kw = {"block_len": block, "chunk_bytes": 16 * 1024}
+    if case == "tree":
+        counts = np.bincount(data, minlength=256) + 1
+        kw["tree"] = PortTree.from_weights(PortWeights(counts))
+    if case == "sampled":
+        kw["hist_sample"] = 4
+    if case != "sampled":  # pass 1 over every byte reads into the slots
+        monkeypatch.setattr(port_stream, "_sampled_pieces", None)
+    port, plain = str(tmp_path / "p.hf2"), str(tmp_path / "plain.hf2")
+    t = StageTimer()
+    with tracing(t):
+        read_compress_write_hf2(src, port, device="cpu", **kw)
+    rec, = t.records
+    resident = rec.counters.get("resident_bytes")
+    if case == "at_budget":
+        assert resident.n == n and rec.spans["read"].bytes == n
+    else:
+        assert resident is None or resident.n == 0
+        assert rec.spans["read"].bytes == (n if case == "tree" else 2 * n)
+    monkeypatch.undo()
+    read_compress_write_hf2(src, plain, device="cpu", **kw)
+    assert open(port, "rb").read() == open(plain, "rb").read()
+
+
+def test_hf2_route_budget_counts_the_allocators_cache(monkeypatch):
+    """A resident call's device copy stays reserved in PyTorch's caching
+    allocator after the call; the budget counts it as free, so a second
+    call of the same size keeps the route (patched readings of a card)."""
+    from tpuhuff_torch.io import stream as port_stream
+
+    dev, padded = torch.device("cuda", 0), 1 << 30
+    card = {"free": 2 * padded + 4096, "reserved": 3 << 20,
+            "allocated": 1 << 20}
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda d=None: (card["free"], 80 << 30))
+    monkeypatch.setattr(torch.cuda, "memory_reserved",
+                        lambda d=None: card["reserved"])
+    monkeypatch.setattr(torch.cuda, "memory_allocated",
+                        lambda d=None: card["allocated"])
+    assert port_stream._resident(dev, padded, padded, None, 1)
+    # the first call's copy, freed into the cache: the card reads it used
+    card["free"] -= padded
+    card["reserved"] += padded
+    assert card["free"] // 2 < padded
+    assert port_stream._resident(dev, padded, padded, None, 1)
+    card["allocated"] += padded  # held by a live tensor: not free
+    assert not port_stream._resident(dev, padded, padded, None, 1)
+
+
+@pytest.mark.parametrize("resident", [False, True])
+def test_hf2_pass1_raises_on_a_file_shorter_than_its_size(
+        tmp_path, monkeypatch, resident):
+    """A file that ends before the size read at the call's start: pass 1
+    over every byte raises on both routes."""
+    from tpuhuff_torch.io import stream as port_stream
+
+    src, data = _src(tmp_path, 10_000, seed=11)
+    real = os.path.getsize
+    monkeypatch.setattr(port_stream.os.path, "getsize",
+                        lambda p: real(p) + (512 if p == src else 0))
+    monkeypatch.setattr(port_stream, "_resident", lambda *a: resident)
+    with pytest.raises(StreamError, match="ended before"):
+        read_compress_write_hf2(src, str(tmp_path / "c.hf2"), device="cpu",
+                                block_len=256, chunk_bytes=4096)
 
 
 def test_hff_small_pieces_carry_bits_across_boundaries(tmp_path):

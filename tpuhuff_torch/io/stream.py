@@ -9,13 +9,20 @@ JAX package's host code (:mod:`tpuhuff_torch.io.hff`, :mod:`.host`).
 
 Compress: pass 1 histograms the file on the device (:func:`histogram`);
 the host builds the length-limited canonical tree and writes the prelude;
-pass 2 reads each chunk straight into a pinned buffer, encodes its
-256-byte lanes on the device (:func:`encode_blocks`; with
-``collect_hist`` the same launches count the bytes, config 4's adaptive
-refresh) and stitches them there into the payload's bytes, the previous
-chunk's trailing bits carried in on the device (:func:`stitch_lanes`),
-while the host patches the block table and CRC column and writes the
-previous chunk's bytes, which it copies back alone.  Decompress copies
+pass 2 encodes each chunk's 256-byte lanes on the device
+(:func:`encode_blocks`; with ``collect_hist`` the same launches count the
+bytes, config 4's adaptive refresh) and stitches them there into the
+payload's bytes, the previous chunk's trailing bits carried in on the
+device (:func:`stitch_lanes`), while the host patches the block table and
+CRC column and writes the previous chunk's bytes, which it copies back
+alone.  Pass 1 reads each chunk straight into a pinned buffer and
+copies it to the device.  Where it counts every byte on a CUDA device
+and the file fits in half the memory the device can give
+(:func:`_resident`), each byte is read and copied to the device once:
+pass 1 takes each chunk's CRC column in the pinned buffer and keeps the
+chunk in a device copy of the file, from which pass 2 encodes.  Else
+pass 2 reads each chunk again, straight into a pinned buffer, and copies
+it.  Decompress copies
 each group's payload bytes to the device, cuts the blocks' rows out of
 them there (:func:`lane_rows`), decodes them (:func:`decode_rows` for
 canonical codes, :func:`decode_rows_general` for any other tree) and
@@ -33,8 +40,9 @@ pinned buffer (``pin_copy``) and each new one (``pin_alloc``, with its
 bytes), at each point where the host waits for the card (``sync.slot``,
 ``sync.result``, ``sync.fetch``, ``sync.counts``), at each file read and
 write (with their bytes), and in the kernel wrappers (``launch``);
-counters ``h2d_bytes`` and ``d2h_bytes``.  On the CPU, where no copy is
-made, they count the bytes a copy would move.
+counters ``h2d_bytes`` and ``d2h_bytes`` (on the CPU, where no copy is
+made, the bytes a copy would move) and ``resident_bytes`` (the input
+bytes pass 2 encoded from the device copy).
 """
 
 from __future__ import annotations
@@ -158,9 +166,10 @@ class _Staging:
         return self._send(host, key).view(_TORCH_DTYPES[arr.dtype]).view(
             arr.shape)
 
-    def _send(self, host: torch.Tensor, key) -> torch.Tensor:
+    def _send(self, host: torch.Tensor, key, out=None) -> torch.Tensor:
         count("h2d_bytes", host.numel())
-        dev = host.to(self.device, non_blocking=True)
+        dev = (host.to(self.device, non_blocking=True) if out is None
+               else out.copy_(host, non_blocking=True))
         self._mark(key)
         return dev
 
@@ -177,13 +186,15 @@ class _Staging:
             arr[got:] = 0
         return buf, got
 
-    def to_device(self, buf: torch.Tensor, key) -> torch.Tensor:
+    def to_device(self, buf: torch.Tensor, key, out=None) -> torch.Tensor:
         """Start copying ``key``'s buffer from :meth:`read_into` to the
-        device (the buffer itself on the CPU)."""
+        device, into ``out`` (a device tensor of its size) where given;
+        returns the device tensor (on the CPU, the buffer itself or
+        ``out`` filled)."""
         if not self.cuda:
             count("h2d_bytes", buf.numel())
-            return buf
-        return self._send(buf, key)
+            return buf if out is None else out.copy_(buf)
+        return self._send(buf, key, out)
 
     def d2h(self, t: torch.Tensor, key) -> torch.Tensor:
         """Start copying ``t`` to the host; read it after :meth:`fence`'s
@@ -309,23 +320,38 @@ class _DeviceBlockEncoder:
                 with span("pin_copy"):
                     arr[:n] = data
                     arr[n:nbytes] = 0
-            if fresh:
-                self.carry, self.carry_bits = new_carry(self.device), 0
-            n_lanes = nbytes // self.lane
-            lanes = self.staging.to_device(buf[:nbytes], ("lanes", slot)).view(
-                n_lanes, self.lane)
-            starts = torch.arange(0, nbytes, self.lane, device=self.device)
-            valid = (n - starts).clamp_(0, self.lane).to(torch.int32)
-            out = encode_blocks(lanes, valid, self.tables, self.tables.max_len,
-                                hist_data=lanes if self.collect_hist else None)
-            words, bits, miss = out[:3]
-            payload, self.carry = stitch_lanes(words, bits, self.carry)
-            small = (bits.view(-1, self.per_block).sum(1), miss.sum().view(1))
-            if self.collect_hist:
-                small += (out[3],)
-            host = tuple(self.staging.d2h(t, (name, slot))
-                         for name, t in zip(self.names, small))
-            return host, payload, nbytes - n, slot, self.staging.fence()
+            return self._launch(
+                self.staging.to_device(buf[:nbytes], ("lanes", slot)), n,
+                slot, fresh)
+
+    def on_device(self, copy: torch.Tensor, lo: int, n: int, slot: int):
+        """The kernels and the small D2H of the chunk of ``n`` bytes at
+        ``lo`` in ``copy``, the device copy of the file, zero past its end
+        to whole blocks; its bytes are counted in ``resident_bytes``."""
+        with span("submit"):
+            count("resident_bytes", n)
+            return self._launch(copy[lo:lo + self._padded(n)], n, slot)
+
+    def _launch(self, lanes: torch.Tensor, n: int, slot: int,
+                fresh: bool = False):
+        """K1 (K5), S1 and the small D2H of the ``n`` bytes at the start of
+        the device tensor ``lanes``, which holds whole blocks."""
+        if fresh:
+            self.carry, self.carry_bits = new_carry(self.device), 0
+        nbytes = lanes.numel()
+        lanes = lanes.view(nbytes // self.lane, self.lane)
+        starts = torch.arange(0, nbytes, self.lane, device=self.device)
+        valid = (n - starts).clamp_(0, self.lane).to(torch.int32)
+        out = encode_blocks(lanes, valid, self.tables, self.tables.max_len,
+                            hist_data=lanes if self.collect_hist else None)
+        words, bits, miss = out[:3]
+        payload, self.carry = stitch_lanes(words, bits, self.carry)
+        small = (bits.view(-1, self.per_block).sum(1), miss.sum().view(1))
+        if self.collect_hist:
+            small += (out[3],)
+        host = tuple(self.staging.d2h(t, (name, slot))
+                     for name, t in zip(self.names, small))
+        return host, payload, nbytes - n, slot, self.staging.fence()
 
     def collect(self, handle) -> _Chunk:
         """Wait for a submitted chunk and copy back its stream's bytes."""
@@ -375,6 +401,20 @@ def read_compress_write_hf2(
     counted during pass 2 by the encode launches themselves (K5); else
     None is returned.  ``stats`` is taken for the JAX package's signature
     and left untouched.
+
+    Routes (the same bytes on both): where pass 1 counts every byte (no
+    ``tree``, ``hist_sample`` 1) on a CUDA device, and the file, padded to
+    whole blocks, takes at most half the memory the device can give at
+    the call's start (:func:`_resident`: the card's free memory and what
+    the caching allocator holds unused), the file is read once: pass 1
+    reads each chunk into a pinned buffer, computes its CRC column there,
+    and copies it into a device copy of the whole file, which pass 2
+    encodes without reading the file again (counter ``resident_bytes``).
+    Else pass 2 reads and copies the file a second time, in chunks.  The
+    device copy takes the padded file's bytes of device memory during
+    the call; at its end PyTorch's caching allocator keeps them reserved
+    for the next call (``torch.cuda.empty_cache()`` hands them back to
+    the card).
     """
     with profiling.call("compress"):
         dev = _resolve(device)
@@ -384,26 +424,24 @@ def read_compress_write_hf2(
         step, crc_every, span_bytes = _chunk_step(block_len, chunk_bytes,
                                                   check)
         staging = _Staging(dev)
+        padded = max(1, -(-size // block_len)) * block_len
+        resident = _resident(dev, size, padded, tree, hist_sample)
         with _open(src_path, "rb") as src, _open(dst_path, "wb") as dst:
+            copy, crcs = None, []
             if tree is None:
-                tree = _pass1_tree(src, size, step, hist_sample,
-                                   max_code_len, staging, dev)
+                if max(1, int(hist_sample)) == 1:
+                    counts, copy, crcs = _pass1(
+                        src, src_path, size, padded, step, span_bytes,
+                        staging, dev, resident)
+                else:
+                    counts = _pass1_sampled(src, size, step, hist_sample,
+                                            staging, dev)
+                tree = _pass1_tree(counts, size, hist_sample, max_code_len)
             tree, sink = _start_hf2(dst, tree, size, block_len, canonical,
                                     crc_every)
-            # pass 2: chunk k+1 is read, copied and launched (its stitch
-            # too) before chunk k's bytes are copied back and written
-            src.seek(0)
             encoder = _DeviceBlockEncoder(tree, block_len, dev, staging,
                                           collect_hist)
             hist = np.zeros(256, dtype=np.int64) if collect_hist else None
-
-            def submit(data: np.ndarray, slot: int):
-                handle = encoder(data, slot)
-                crcs = None
-                if crc_every:
-                    with span("crc"):
-                        crcs = native.crc32_blocks(data, span_bytes)
-                return handle, crcs
 
             def collect(pending) -> None:
                 handle, crcs = pending
@@ -415,20 +453,88 @@ def read_compress_write_hf2(
                     sink.write_aligned(c.full, c.nbits, c.partial,
                                        c.partial_bits, c.bit_lens, crcs)
 
-            _pipeline(src, size, step, submit, collect,
-                      lambda n, slot: encoder.read(src, n, slot))
+            if copy is not None:
+                _encode_resident(encoder, copy, size, step, crcs, collect)
+            else:
+                # pass 2: chunk k+1 is read, copied and launched (its
+                # stitch too) before chunk k's bytes are copied back and
+                # written
+                src.seek(0)
+
+                def submit(data: np.ndarray, slot: int):
+                    handle = encoder(data, slot)
+                    crcs = None
+                    if crc_every:
+                        with span("crc"):
+                            crcs = native.crc32_blocks(data, span_bytes)
+                    return handle, crcs
+
+                _pipeline(src, size, step, submit, collect,
+                          lambda n, slot: encoder.read(src, n, slot))
             with span("sink"):
                 sink.finish()
         return hist
 
 
-def _pass1_tree(src, size: int, step: int, hist_sample: int,
-                max_code_len: int | None, staging: _Staging,
-                dev: torch.device) -> HuffTree:
-    """Pass 1 of :func:`read_compress_write_hf2` (span ``pass1``): one
-    histogram launch per piece, each adding into the running int64 counts
-    on the device, and one 256-count transfer at the end; then the
-    length-limited tree (span ``tree``)."""
+def _device_free_bytes(dev: torch.device) -> int:
+    """The memory a new tensor on ``dev`` can take when it is a CUDA
+    device: the card's free memory and what this process's caching
+    allocator holds reserved but unused (a previous call's device copy
+    among it); 0 on any other device, which keeps no resident copy."""
+    if dev.type != "cuda":
+        return 0
+    return (torch.cuda.mem_get_info(dev)[0] + torch.cuda.memory_reserved(dev)
+            - torch.cuda.memory_allocated(dev))
+
+
+def _resident(dev: torch.device, size: int, padded: int,
+              tree: HuffTree | None, hist_sample: int) -> bool:
+    """Whether :func:`read_compress_write_hf2` keeps the file on the
+    device: pass 1 runs and counts every byte, and the file's ``padded``
+    bytes take at most half of :func:`_device_free_bytes`."""
+    return (tree is None and max(1, int(hist_sample)) == 1 and size > 0
+            and padded <= _device_free_bytes(dev) // 2)
+
+
+def _pass1(src, src_path: str, size: int, padded: int, step: int,
+           span_bytes: int, staging: _Staging, dev: torch.device,
+           resident: bool):
+    """Pass 1 over every byte (span ``pass1``): each ``step`` chunk is read
+    straight into a pinned slot, copied to the device and counted there,
+    one histogram launch adding into the running counts.  With
+    ``resident`` each chunk goes into its slice of a device copy of the
+    file (``padded`` bytes, zero past its end), and the host computes the
+    chunk's CRC column (``span_bytes`` spans; none if 0) in the slot
+    while the card copies and counts it.  Returns the (256,) counts, the
+    copy (None unless ``resident``) and the CRC columns."""
+    with span("pass1"):
+        copy = (torch.empty(padded, dtype=torch.uint8, device=dev)
+                if resident else None)
+        acc = torch.zeros(256, dtype=torch.int64, device=dev)
+        crcs = []
+        for k, lo in enumerate(range(0, size, step)):
+            n = min(step, size - lo)
+            key = ("hist", k % 2)
+            buf, got = staging.read_into(src, n, n, key)
+            if got < n:
+                raise StreamError(f"{src_path!r} ended before its {size} "
+                                  "bytes")
+            out = None if copy is None else copy[lo:lo + n]
+            histogram(staging.to_device(buf, key, out=out), out=acc)
+            if copy is not None and span_bytes:
+                with span("crc"):
+                    crcs.append(native.crc32_blocks(buf.numpy(), span_bytes))
+        counts = _fetch_counts(acc)
+        if copy is not None:
+            copy[size:].zero_()  # the last block's padding, read by its lanes
+    return counts, copy, crcs
+
+
+def _pass1_sampled(src, size: int, step: int, hist_sample: int,
+                   staging: _Staging, dev: torch.device) -> np.ndarray:
+    """Pass 1 of a sampled histogram (span ``pass1``): one histogram launch
+    per piece of :func:`_sampled_pieces`, each adding into the running
+    int64 counts on the device, and one 256-count transfer at the end."""
     with span("pass1"):
         acc = torch.zeros(256, dtype=torch.int64, device=dev)
         for k, piece in enumerate(_sampled_pieces(src, size, step,
@@ -436,14 +542,41 @@ def _pass1_tree(src, size: int, step: int, hist_sample: int,
             histogram(staging.h2d(np.frombuffer(piece, dtype=np.uint8),
                                   ("hist", k % 2)), out=acc)
         piece = None  # the last piece's memory is freed in pass 1
-        with span("sync.counts"):
-            counts = acc.cpu().numpy()
-        count("d2h_bytes", counts.nbytes)
+        return _fetch_counts(acc)
+
+
+def _fetch_counts(acc: torch.Tensor) -> np.ndarray:
+    """Pass 1's running counts, copied back (span ``sync.counts``)."""
+    with span("sync.counts"):
+        counts = acc.cpu().numpy()
+    count("d2h_bytes", counts.nbytes)
+    return counts
+
+
+def _pass1_tree(counts: np.ndarray, size: int, hist_sample: int,
+                max_code_len: int | None) -> HuffTree:
+    """The length-limited tree of pass 1's ``counts`` (span ``tree``)."""
     with span("tree"):
         if max(1, int(hist_sample)) > 1 and size > 0:
             counts = counts + 1  # every byte gets a code
         ml_cap = 32 if max_code_len is None else min(max_code_len, 32)
         return build_tree_for_device(ByteWeights(counts), max_len=ml_cap)[0]
+
+
+def _encode_resident(encoder: _DeviceBlockEncoder, copy: torch.Tensor,
+                     size: int, step: int, crcs: list, collect) -> None:
+    """Pass 2 of the resident route: each ``step`` chunk's lanes are a
+    view of the device copy, and chunk k+1 is launched before ``collect``
+    takes chunk k with its CRC column."""
+    pending = None
+    for k, lo in enumerate(range(0, size, step)):
+        n = min(step, size - lo)
+        handle = encoder.on_device(copy, lo, n, k % 2)
+        if pending is not None:
+            collect(pending)
+        pending = handle, (crcs[k] if crcs else None)
+    if pending is not None:
+        collect(pending)
 
 
 def read_compress_write(
