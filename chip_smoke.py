@@ -85,6 +85,16 @@ Phases (any failure exits non-zero and prints no result line):
    on CPU tensors and to the count the histogram gives (0, then > 0), and
    ``kernels.words_to_payload`` of 16 of K1's lanes equal to each lane's
    stitched bytes and to the host encoder's; both timed beside K1;
+   (f) the textlike file at config 2's 64 KiB blocks and at 1 MiB blocks,
+   written by the host writer (K2) and by the ``.hff`` to ``.hf2``
+   transcode (K4: its tree is not canonical), each decoded on the card by
+   ``read_decompress_write_hf2`` with every count set to 0 just before
+   it: no call handed to the host decoder, no host stage, S2 and the
+   decoder once per decode group, every block on the global-rows route,
+   exact; then K2 and K4 on S2's rows of the first decode group of each
+   64 KiB container (1,024 blocks of ~9,300 words) against their plain
+   versions and the source, timed (card, alone, plain, the bound of the
+   group's bytes);
 5. wall-clock rates of port compress and decompress (canonical and not)
    and of dataset compress (shared and adaptive) beside the host C++
    writers and reader, and a device-to-device copy;
@@ -129,7 +139,8 @@ Every phase's launch counts include S1 and S2 (``kernels.stitch_lanes``,
 one S2 for each decoder launch of the device reader.
 
 The line before the last is ``{"kernels": [...]}`` (the five kernels, the
-decoders' two global-rows routes, ``stitch`` and ``lane_rows``); the last line is
+decoders' two global-rows routes as phase 4f measures them, ``stitch`` and
+``lane_rows``); the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of JAX, and nothing of the JAX
 package, is imported.
 """
@@ -654,9 +665,10 @@ def decode_groups(src: str, block_len: int = LANE) -> int:
     """The groups the device reader decodes ``src``'s ``.hf2`` in (default
     chunk): one S2 and one decoder launch each."""
     from tpuhuff_torch.io.host import _CHUNK
+    from tpuhuff_torch.io.stream import _group_blocks
 
     blocks = -(-os.path.getsize(src) // block_len)
-    return -(-blocks // max(1024, _CHUNK // block_len))
+    return -(-blocks // _group_blocks(block_len, _CHUNK))
 
 
 class host_stages_forbidden:
@@ -837,6 +849,163 @@ def phase4e_guards(work: str, dev, card: str, np, torch, mb: int = 64) -> None:
             f"{lanes.numel() / HBM_BYTES_PER_MS:.4f} ms) [{card}]")
 
 
+CONFIG2_BLOCK = 65536  # config 2's published blocks
+WIDE_BLOCKS = (CONFIG2_BLOCK, 1 << 20)
+
+
+def phase4f_wide_blocks(work: str, dev, card: str, reset, read, errs: dict,
+                        np, torch) -> tuple[dict, dict]:
+    """Phase 4f: the textlike file at config 2's 64 KiB blocks and at 1 MiB
+    blocks, written by the host writer (canonical codes: K2) and by the
+    ``.hff`` to ``.hf2`` transcode (the ``.hff`` writer's tree, which is
+    not canonical: K4), each decoded by ``read_decompress_write_hf2`` on
+    the card with every count set to 0 just before it.  No call reaches
+    the host decoder (no ``host_route_bytes``), no host stage runs, S2 and
+    the decoder launch once per decode group, every block takes the
+    global-rows route (``global_blocks``, the tracer's
+    ``global_rows_blocks``), and the output restores the source.  Then, on
+    the first decode group of each 64 KiB container (S2's rows of 1,024
+    blocks on the card), the decoder against its plain version, and timed:
+    kernel, alone, plain, and the bound of the group's payload words,
+    block bit counts, tables and output.  Returns the 64 KiB calls'
+    global-rows launches and those timings, for the kernels line, keyed
+    ``decode_global_rows`` and ``decode_general_global_rows``."""
+    from tpuhuff_torch.io import read_decompress_write_hf2, stream
+    from tpuhuff_torch.io import transcode_hff_to_hf2
+    from tpuhuff_torch.io.hff import read_hf2_header
+    from tpuhuff_torch.io.host import (
+        _CHUNK,
+        read_compress_write_hf2_host,
+        read_compress_write_host,
+    )
+    from tpuhuff_torch.kernels import (
+        decode_rows,
+        decode_rows_general,
+        decode_rows_general_reference,
+        decode_rows_reference,
+        decode_tile_rows,
+        decoder_for,
+        lane_rows,
+    )
+    from tpuhuff_torch.profiling import StageTimer, tracing
+
+    wrappers = {"decode": decode_rows, "decode_general": decode_rows_general}
+    plain = {"decode": decode_rows_reference,
+             "decode_general": decode_rows_general_reference}
+    attrs = ("blocks", "global_blocks")
+    launches, timing = {}, {}
+
+    def group_check(key, hdr, hf2, src_data):
+        """The decoder on S2's rows of the first decode group of ``hf2``,
+        against its plain version and the source; timed."""
+        glob = f"{key}_global_rows"
+        g1 = min(stream._group_blocks(hdr.block_len, _CHUNK), hdr.num_blocks)
+        ends = hdr.end_bits.astype(np.int64)[:g1]
+        starts = np.concatenate([[0], ends[:-1]])
+        with open(hf2, "rb") as fp:
+            fp.seek(hdr.payload_offset)
+            payload = np.frombuffer(fp.read((int(ends[-1]) + 7) // 8),
+                                    dtype=np.uint8)
+        rows, b0 = lane_rows(torch.from_numpy(payload.copy()).to(dev),
+                             starts, ends)
+        nb = torch.from_numpy((ends - starts).astype(np.int32)).to(dev)
+        tab = decoder_for(hdr.tree)[1].to(dev)
+        fn = wrappers[key]
+
+        def run():
+            return fn(rows, b0, nb, tab, hdr.block_len)
+
+        tile = decode_tile_rows(g1, rows.shape[1], hdr.block_len,
+                                key == "decode_general", dev)
+        out = run()
+        ms = cuda_ms(torch, run)
+        alone_ms, host_ms = spin_ms(torch, run)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain[key](rows, b0, nb, tab, hdr.block_len)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        err = max_err(torch, out, want)
+        errs[glob] = max(errs[glob], err)
+        if err or tile:
+            fail(f"4f {glob}: err {err} against the plain version, "
+                 f"{tile} blocks per thread block (0: the global-rows route)")
+        n = g1 * hdr.block_len
+        if not np.array_equal(out.reshape(-1).cpu().numpy(), src_data[:n]):
+            fail(f"4f {glob}: the group does not restore its source")
+        tables = ((tab.ub, tab.dd, tab.perm) if key == "decode"
+                  else (tab.thr, tab.sym, tab.len))
+        moved = (payload_bytes(b0, nb) + 8 * g1 + nbytes(*tables) + n)
+        timing[glob] = (ms, plain_ms, moved / HBM_BYTES_PER_MS)
+        log(f"phase 4f: {glob} on the first decode group of the "
+            f"{hdr.block_len >> 10} KiB container ({g1} blocks, S2's rows of {rows.shape[1]} words, "
+            f"max code {hdr.tree.max_code_len()} bits): kernel {ms:.4f} ms, "
+            f"alone {alone_ms:.4f} ms (the wrapper's host time per call "
+            f"{host_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+            f"{moved / HBM_BYTES_PER_MS:.4f} ms ({moved} B at 3.35 TB/s), "
+            f"err {err} [{card}]")
+
+    src = os.path.join(work, "textlike.bin")
+    src_data = np.fromfile(src, dtype=np.uint8)
+    hff = src + ".4f.hff"
+    read_compress_write_host(src, hff)
+    for block_len in WIDE_BLOCKS:
+        for writer, key in (("host writer", "decode"),
+                            ("transcode", "decode_general")):
+            hf2 = f"{src}.4f.{block_len}.{writer.split()[0]}.hf2"
+            if writer == "host writer":
+                read_compress_write_hf2_host(src, hf2, block_len=block_len)
+            else:
+                transcode_hff_to_hf2(hff, hf2, block_len=block_len)
+            with open(hf2, "rb") as fp:
+                hdr = read_hf2_header(fp)
+            B = hdr.num_blocks
+            groups = -(-B // stream._group_blocks(block_len, _CHUNK))
+            label = f"{writer}, block_len {block_len}, {key}"
+            if decoder_for(hdr.tree)[0] is not wrappers[key]:
+                fail(f"4f {label}: decoder_for picked "
+                     f"{decoder_for(hdr.tree)[0].__name__}")
+            reset()
+            for fn in wrappers.values():
+                for a in attrs:
+                    setattr(fn, a, 0)
+            traced = StageTimer()
+            with host_stages_forbidden(), tracing(traced):
+                read_decompress_write_hf2(hf2, hf2 + ".out", device=dev)
+            c = read()
+            c.update({f"{k}.{a}": getattr(fn, a)
+                      for k, fn in wrappers.items() for a in attrs})
+            rec, = traced.records
+            if "host_route_bytes" in rec.counters:
+                fail(f"4f {label}: the call went to the host decoder")
+            other = "decode_general" if key == "decode" else "decode"
+            want = {key: groups, f"{key}_global_rows": groups,
+                    f"{key}.blocks": B, f"{key}.global_blocks": B,
+                    "lane_rows": groups, other: 0, f"{other}_global_rows": 0,
+                    f"{other}.blocks": 0, f"{other}.global_blocks": 0}
+            got = {k: c[k] for k in want}
+            if got != want or any(c[k] for k in c if k not in want):
+                fail(f"4f {label}: launches {c}, want {want} and no other")
+            glob = rec.counters.get("global_rows_blocks")
+            if glob is None or glob.n != B:
+                fail(f"4f {label}: global_rows_blocks "
+                     f"{None if glob is None else glob.n}, want {B}")
+            if not same_file(hf2 + ".out", src):
+                fail(f"4f {label}: the decode does not restore the source")
+            log(f"phase 4f: {label}: {B} blocks in {groups} groups, every "
+                f"one on the global-rows route, no host decoder, exact; "
+                f"launches {c}")
+            if block_len == CONFIG2_BLOCK:
+                launches[f"{key}_global_rows"] = c[f"{key}_global_rows"]
+                group_check(key, hdr, hf2, src_data)
+            os.unlink(hf2)
+            os.unlink(hf2 + ".out")
+    os.unlink(hff)
+    return launches, timing
+
+
 def make_config3(n: int, np, seed: int = 3):
     """Config 3's mixed binary corpus from the seed: a third textlike, a
     third uniform random bytes and a third drawn from a geometric law
@@ -923,9 +1092,9 @@ def wide_code_blocks(np, n_blocks: int, block_len: int = 65536,
     return cases
 
 
-def phase7_mesh(dev, card: str, reset, read, np, torch) -> dict:
+def phase7_mesh(dev, card: str, reset, read, np, torch) -> None:
     """Phases 7a and 7b: config 3 on a mesh of the card, and the sharded
-    decoders.  Returns the global-rows routes' launches of 7b."""
+    decoders."""
     import tpuhuff_torch
     from tpuhuff_torch.dist import compress_sharded, make_mesh, sharded_decode_blocks
     from tpuhuff_torch.core.canonical import canonicalize
@@ -1049,7 +1218,6 @@ def phase7_mesh(dev, card: str, reset, read, np, torch) -> dict:
 
     # 7b (iv): blocks of 65536 codes of 25 to 32 bits: rows too wide for
     # shared memory take the decoders' global-rows route
-    launches = {}
     for key, (t, wide, rows, bit0, bits) in wide_code_blocks(np, 64).items():
         glob = f"{key}_global_rows"
         reset()
@@ -1059,7 +1227,6 @@ def phase7_mesh(dev, card: str, reset, read, np, torch) -> dict:
             fail(f"7b {glob}: the decode is not exact")
         if c[glob] != len(mesh) or c[key] != len(mesh):
             fail(f"7b {glob}: the global-rows route did not launch: {c}")
-        launches[glob] = c[glob]
         log(f"phase 7b: {glob}: {rows.shape[0]} blocks of 65536 codes of "
             f"25-32 bits, rows of {rows.shape[1]} words, exact, launches {c} "
             f"[{card}]")
@@ -1070,7 +1237,6 @@ def phase7_mesh(dev, card: str, reset, read, np, torch) -> dict:
                 f"codes (W {W}): K2 {decode_tile_rows(1 << 14, W, L, False, dev)}"
                 f", K4 {decode_tile_rows(1 << 14, W, L, True, dev)} (0: rows "
                 "from device memory)")
-    return launches
 
 
 _PASS1_CHILD = r"""
@@ -1777,8 +1943,8 @@ def main() -> None:
     # the global-rows route at the shape phase 7b gives one launch: a shard
     # of 16 blocks of 65536 codes of 25-32 bits.  The plain version takes
     # tens of seconds here: one call, timed with events, which also gives
-    # the error at this shape
-    global_timing = {}
+    # the error at this shape (the kernels line times the route on phase
+    # 4f's real text group)
     for key, (t, _, rows_np, bit0_np, bits_np) in wide_code_blocks(np, 16).items():
         decode, plain_fn = decoders[key]
         tab = decoder_for(t)[1].to(dev)
@@ -1801,7 +1967,6 @@ def main() -> None:
                   else (tab.thr, tab.sym, tab.len))
         moved = (payload_bytes(b0, nb) + 8 * r.shape[0] + nbytes(*tables)
                  + r.shape[0] * 65536)
-        global_timing[glob] = (ms, plain_ms, moved / HBM_BYTES_PER_MS)
         log(f"phase 3: {glob} at the shape of a phase-7b launch ({r.shape[0]} "
             f"blocks of 65536 codes of 25-32 bits, rows of {r.shape[1]} "
             f"words): kernel {ms:.4f} ms, alone {alone_ms:.4f} ms, plain "
@@ -2062,6 +2227,9 @@ def main() -> None:
             fail(f"4d: S2 did not precede every decode: {counts}")
         # (e) the missing-letter count and the block bit lengths beside K1
         phase4e_guards(work, dev, card, np, torch)
+        # (f) config 2's 64 KiB blocks, and 1 MiB ones, decoded on the card
+        wide_launches, wide_timing = phase4f_wide_blocks(
+            work, dev, card, reset, read, errs, np, torch)
 
         # -- phase 5: rates --------------------------------------------------
         src = os.path.join(work, "textlike.bin")
@@ -2142,7 +2310,7 @@ def main() -> None:
 
         # -- phase 7: config 3 on a mesh, the sharded decoders, config 5 -----
         t7 = time.perf_counter()
-        routes = phase7_mesh(dev, card, reset, read, np, torch)
+        phase7_mesh(dev, card, reset, read, np, torch)
         phase7_multiprocess(work, dev, card, np)
         log(f"phase 7: {time.perf_counter() - t7:.3f} s")
     finally:
@@ -2184,16 +2352,18 @@ def main() -> None:
                 "bound_ms": bound[k], "bound_by": "bytes",
                 "library_ms": timing[k][2]}
                for k, (src, rep) in sources.items()]
-    # the decoders' route for rows too wide for shared memory (phase 7b's
-    # blocks of 65536 long codes); its launches are also in K2's and K4's
+    # the decoders' route for rows too wide for shared memory: the main
+    # path's at config 2's 64 KiB blocks (phase 4f: the launches of the 64
+    # KiB calls, timed on a real 1,024-block group); its launches are also
+    # in K2's and K4's
     for k in ("decode", "decode_general"):
         glob = f"{k}_global_rows"
-        ms, plain_ms, bound_ms = global_timing[glob]
+        ms, plain_ms, bound_ms = wide_timing[glob]
         kernels.append({
             "name": glob, "route": "cuda",
             "source": f"{sources[k][0]} + tpuhuff_torch/csrc/decode_common.cuh"
                       " + tpuhuff_torch/csrc/decode_split.cuh (kGlobalRows)",
-            "replaces": sources[k][1], "launches": routes[glob],
+            "replaces": sources[k][1], "launches": wide_launches[glob],
             "max_abs_err": errs[glob], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)

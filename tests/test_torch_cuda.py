@@ -30,7 +30,7 @@ from tpuhuff_torch.kernels import (
     payload_to_lane_words,
 )
 
-from chip_smoke import HIST_KINDS, make_hist_input
+from chip_smoke import HIST_KINDS, make_hist_input, make_textlike
 from test_torch_decode_split import CASES, split_case
 from test_torch_lane_rows import CASES as ROW_CASES
 from test_torch_lane_rows import blocks_case
@@ -558,3 +558,59 @@ def test_file_path_through_the_host_stage_kernels(dev, tmp_path):
     assert stitch_lanes.launches - before[0] == 3  # 3 chunks of 1 MiB
     groups = -(-(-(-data.size // 256)) // 4096)  # 4096 blocks a 1 MiB group
     assert lane_rows.launches - before[1] == groups
+
+
+@pytest.mark.parametrize("writer", ["host writer", "transcode"])
+@pytest.mark.parametrize("block_len,full,chunk", [
+    (65536, 1024, None), (65536, 5, 2 * 65536), (1 << 20, 5, 2 << 20)])
+def test_file_path_at_wide_blocks(dev, tmp_path, block_len, full, chunk,
+                                  writer):
+    """Config 2's 64 KiB blocks, and 1 MiB ones, through
+    ``read_decompress_write_hf2`` on the card: containers of the host
+    writer (K2) and of the ``.hff`` to ``.hf2`` transcode (K4 unless its
+    tree is canonical), ``full`` blocks and a short one, in groups of 1024
+    blocks (the default chunk) or of 2.  Exact; S2 and the decoder once
+    per group, every block on the global-rows route (``global_launches``,
+    ``global_blocks``, the tracer's ``global_rows_blocks``), and no call
+    handed to the host decoder (no ``host_route_bytes``)."""
+    from tpuhuff_torch.io import read_decompress_write_hf2, stream
+    from tpuhuff_torch.io import transcode_hff_to_hf2
+    from tpuhuff_torch.io.hff import read_hf2_header
+    from tpuhuff_torch.io.host import (
+        _CHUNK,
+        read_compress_write_hf2_host,
+        read_compress_write_host,
+    )
+    from tpuhuff_torch.kernels import decoder_for, lane_rows
+    from tpuhuff_torch.profiling import StageTimer, tracing
+
+    data = make_textlike(full * block_len + block_len // 3 + 5, np,
+                         seed=full)
+    src, hf2, out = (str(tmp_path / k) for k in ("s", "c.hf2", "o"))
+    data.tofile(src)
+    if writer == "host writer":
+        read_compress_write_hf2_host(src, hf2, block_len=block_len)
+    else:
+        read_compress_write_host(src, src + ".hff")
+        transcode_hff_to_hf2(src + ".hff", hf2, block_len=block_len)
+    with open(hf2, "rb") as fp:
+        hdr = read_hf2_header(fp)
+    B = hdr.num_blocks
+    assert B == full + 1
+    groups = -(-B // stream._group_blocks(block_len, chunk or _CHUNK))
+    assert groups == (2 if chunk is None else 3)
+    wrapper = decoder_for(hdr.tree)[0]
+    assert wrapper is decode_rows or writer == "transcode"
+    attrs = ("launches", "global_launches", "blocks", "global_blocks")
+    before = [getattr(wrapper, a) for a in attrs] + [lane_rows.launches]
+    t = StageTimer()
+    with tracing(t):
+        read_decompress_write_hf2(hf2, out, device=dev, chunk_bytes=chunk)
+    torch.cuda.synchronize()
+    after = [getattr(wrapper, a) for a in attrs] + [lane_rows.launches]
+    assert [a - b for a, b in zip(after, before)] == [groups, groups, B, B,
+                                                      groups]
+    rec, = t.records
+    assert "host_route_bytes" not in rec.counters
+    assert rec.counters["global_rows_blocks"].n == B
+    assert np.array_equal(np.fromfile(out, dtype=np.uint8), data)

@@ -329,9 +329,10 @@ def decompress_file_multihost(
     ``device`` ``"host"`` decodes with the threaded C++ DFA; a torch
     device with K2 or K4 (:func:`~tpuhuff_torch.kernels.decoder_for`).
     As in the JAX function, blocks longer than
-    ``DEVICE_DECODE_MAX_BLOCK`` (2048) bytes (a serial scan of the whole
-    block per device thread) and one-letter trees take the
-    host route whatever ``device`` says.  ``check`` verifies each CRC span
+    ``DEVICE_DECODE_MAX_BLOCK`` (2048) bytes and one-letter trees take
+    the host route whatever ``device`` says, a CUDA device too (unlike
+    ``io.read_decompress_write_hf2``, which decodes every block length on
+    a CUDA device).  ``check`` verifies each CRC span
     that lies whole in this process's share (a span split between two
     processes is left to a whole-file decode).
 

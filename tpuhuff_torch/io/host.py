@@ -13,8 +13,8 @@ and reading the same bytes:
   writes), with config 4's ``collect_hist``;
 * :func:`read_decompress_write_hf2_host` — the threaded-DFA ``.hf2``
   reader.  The device reader hands it the cases that have no per-block
-  device decode: an empty file, a one-letter tree and blocks longer than
-  2048 bytes;
+  device decode: an empty file, a one-letter tree and, on a device other
+  than CUDA, blocks longer than 2048 bytes;
 * :func:`read_compress_write_host` and :func:`read_decompress_write` — the
   reference's ``.hff`` format: the ``device=False`` writer, and the reader,
   which indexes a large ``.hff`` into a ``<src>.hf2x`` sidecar on its

@@ -41,8 +41,11 @@ bytes), at each point where the host waits for the card (``sync.slot``,
 ``sync.result``, ``sync.fetch``, ``sync.counts``), at each file read and
 write (with their bytes), and in the kernel wrappers (``launch``);
 counters ``h2d_bytes`` and ``d2h_bytes`` (on the CPU, where no copy is
-made, the bytes a copy would move) and ``resident_bytes`` (the input
-bytes pass 2 encoded from the device copy).
+made, the bytes a copy would move), ``resident_bytes`` (the input
+bytes pass 2 encoded from the device copy), ``host_route_bytes`` (the
+output bytes of a decompress handed to the host decoder) and, in the
+decoders' wrappers, ``global_rows_blocks`` (the blocks decoded on their
+global-rows route).
 """
 
 from __future__ import annotations
@@ -92,9 +95,12 @@ from .host import (
 __all__ = ["read_compress_write_hf2", "read_decompress_write_hf2",
            "read_compress_write"]
 
-# largest block the device decoder takes: bigger blocks (host-written
-# .hf2) would be one long serial scan per thread; the threaded host DFA
-# decodes those (the same rule as the JAX device route)
+# largest block that the kernels' plain versions (a CPU device) and
+# dist.multihost's torch route decode: past it they hand the container to
+# the threaded host DFA (the rule of the JAX device route), as a plain
+# version steps once per output position.  A CUDA device decodes every
+# block length: rows too wide for shared memory take the decoders'
+# global-rows route (kernels/decode.py)
 DEVICE_DECODE_MAX_BLOCK = 2048
 
 _TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8,
@@ -642,14 +648,19 @@ def read_decompress_write_hf2(
     check: bool = True, threads: int | None = None,
 ) -> None:
     """Decode a ``.hf2`` container on ``device``, in groups of about
-    ``chunk_bytes`` output bytes; the counterpart of
-    ``tpuhuff.io.stream.read_decompress_write_hf2(..., device=True)``.
+    ``chunk_bytes`` output bytes (:func:`_group_blocks`); the counterpart
+    of ``tpuhuff.io.stream.read_decompress_write_hf2(..., device=True)``.
 
-    As in the JAX device route, an empty file, a one-letter tree and
-    blocks longer than 2048 bytes go to the host decoder
-    (:func:`read_decompress_write_hf2_host`, on ``threads`` threads),
-    which has no per-block serial scan.  Canonical codes, detected from
-    the tree itself and not from the container's flag, decode with
+    Routes (:func:`_host_route`): an empty file and a one-letter tree go
+    to the host decoder (:func:`read_decompress_write_hf2_host`, on
+    ``threads`` threads), counted in ``host_route_bytes``.  A CUDA device
+    decodes every block length on the card: rows of which shared memory
+    holds fewer than 32 (host-written 64 KiB blocks among them) take the
+    decoders' global-rows route.  On any other device, where the kernels'
+    plain versions step once per output position, blocks longer than
+    ``DEVICE_DECODE_MAX_BLOCK`` (2048) bytes go to the host decoder too,
+    as in the JAX device route.  Canonical codes, detected from the tree
+    itself and not from the container's flag, decode with
     :func:`decode_rows`; any other tree with :func:`decode_rows_general`.
     ``check`` verifies the CRC32 column, raising
     ``StreamError(kind="CorruptData")`` on a mismatch.  ``stats`` is taken
@@ -661,14 +672,33 @@ def read_decompress_write_hf2(
         with _open(src_path, "rb") as src, _open(dst_path, "wb") as dst:
             with span("header"):
                 hdr = _read_header(src, src_path)
-            on_host = (hdr.orig_len == 0 or hdr.tree.is_leaf(hdr.tree.root)
-                       or hdr.block_len > DEVICE_DECODE_MAX_BLOCK)
-            if not on_host:
+            if not _host_route(hdr, dev):
                 _decode_groups(hdr, src, dst, src_path, dev, chunk, check)
                 return
+        count("host_route_bytes", hdr.orig_len)
         read_decompress_write_hf2_host(src_path, dst_path,
                                        chunk_bytes=chunk_bytes, check=check,
                                        threads=threads)
+
+
+def _host_route(hdr, dev: torch.device) -> bool:
+    """Whether :func:`read_decompress_write_hf2` hands the container of
+    ``hdr`` to the host decoder on ``dev``: an empty file, a one-letter
+    tree, or, on a device other than CUDA, blocks longer than
+    ``DEVICE_DECODE_MAX_BLOCK``."""
+    return (hdr.orig_len == 0 or hdr.tree.is_leaf(hdr.tree.root)
+            or (dev.type != "cuda"
+                and hdr.block_len > DEVICE_DECODE_MAX_BLOCK))
+
+
+def _group_blocks(block_len: int, chunk: int) -> int:
+    """Blocks per decode group: about ``chunk`` bytes of output, at least
+    1024 blocks up to ``DEVICE_DECODE_MAX_BLOCK``, and rows under one
+    :func:`lane_rows` launch's 2^31 words (``block_len + 3`` words a row
+    at most, for codes of up to 32 bits)."""
+    n = max(1024 if block_len <= DEVICE_DECODE_MAX_BLOCK else 1,
+            chunk // block_len)
+    return min(n, max(1, ((1 << 31) - 1) // (block_len + 3)))
 
 
 def _decode_groups(hdr, src, dst, src_path: str, dev: torch.device,
@@ -692,7 +722,7 @@ def _decode_groups(hdr, src, dst, src_path: str, dev: torch.device,
                 verifier.feed(piece)
 
     B = hdr.num_blocks
-    gsize = max(1024, chunk // hdr.block_len)  # blocks per group
+    gsize = _group_blocks(hdr.block_len, chunk)
     staging = _Staging(dev)
 
     def submit_group(g0: int, slot: int):

@@ -27,8 +27,12 @@ which shared memory holds fewer than 32 (:func:`decode_tile_rows` 0) take
 the kernels' global-rows route, which reads them from device memory with
 one thread block per block, the block's bits split across its threads into
 subsequences that synchronise themselves (``csrc/decode_split.cuh``); the
-launch reports the route it took, and such launches are also counted in
-``<wrapper>.global_launches``.
+launch reports the route it took.  Each wrapper counts its launches and
+their blocks in ``<wrapper>.launches`` and ``.blocks``, and those of the
+global-rows route also in ``.global_launches`` and ``.global_blocks``:
+totals over the process, which read without a tracer.  The active
+tracer's counter ``global_rows_blocks`` gives the same blocks per traced
+file call, in that call's record.
 """
 
 from __future__ import annotations
@@ -495,13 +499,29 @@ def decode_rows(rows: torch.Tensor, bit0: torch.Tensor, nbits: torch.Tensor,
                       tables.dd.data_ptr(), tables.perm.data_ptr(),
                       tables.lut.data_ptr(), out.data_ptr(), B, W, int(block_len),
                       tables.max_len, ctypes.addressof(route))
-        decode_rows.launches += 1
-        decode_rows.global_launches += route.value
+        _counted(_K2, B, route.value)
         return out
 
 
+def _counted(wrapper, B: int, global_rows: int) -> None:
+    """One launch of ``B`` blocks, on the global-rows route where
+    ``global_rows`` is 1, added to ``wrapper``'s counters."""
+    wrapper.launches += 1
+    wrapper.blocks += B
+    if global_rows:
+        wrapper.global_launches += 1
+        wrapper.global_blocks += B
+        count("global_rows_blocks", B)
+
+
+# The counters live on the functions as defined here (_K2, _K4), so that a
+# wrapper set over a module name from outside (a benchmark's timer) leaves
+# every launch counted where it is read.
+_K2 = decode_rows
 decode_rows.launches = 0         # K2, both routes
 decode_rows.global_launches = 0  # K2's global-rows route
+decode_rows.blocks = 0           # the blocks of those launches
+decode_rows.global_blocks = 0
 
 
 def decode_rows_reference(rows: torch.Tensor, bit0: torch.Tensor,
@@ -556,13 +576,15 @@ def decode_rows_general(rows: torch.Tensor, bit0: torch.Tensor,
                       tables.sym.data_ptr(), tables.len.data_ptr(),
                       tables.lut.data_ptr(), out.data_ptr(), B, W, int(block_len),
                       ctypes.addressof(route))
-        decode_rows_general.launches += 1
-        decode_rows_general.global_launches += route.value
+        _counted(_K4, B, route.value)
         return out
 
 
+_K4 = decode_rows_general
 decode_rows_general.launches = 0         # K4, both routes
 decode_rows_general.global_launches = 0  # K4's global-rows route
+decode_rows_general.blocks = 0           # the blocks of those launches
+decode_rows_general.global_blocks = 0
 
 
 def decode_rows_general_reference(rows: torch.Tensor, bit0: torch.Tensor,
