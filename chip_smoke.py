@@ -46,7 +46,12 @@ Phases (any failure exits non-zero and prints no result line):
    rows), one byte off its alignment, and random blocks over payloads of
    1 B to 1 MiB (their ends read as 0); both timed beside K1 (card, alone,
    the wrapper's host time per call, plain; S2 also the PyTorch index
-   gather with its byteswap).  The decoders' first-level table size k, rows per thread block n and
+   gather with its byteswap); the CRC32 kernel (C1) on the main path's
+   64 MiB chunk of 64 KiB spans, its ragged end, 1 MiB spans, a decode
+   group's head and short end and 384-byte blocks' spans 3 bytes off an
+   allocation, against its plain version and the host runtime's
+   ``crc32_blocks``, timed on the chunk (card, alone, the wrapper's host
+   time per call, plain, the host CRC, the bound).  The decoders' first-level table size k, rows per thread block n and
    the share of the main input's symbols that escape the table; kernel,
    plain and library-call times at the main path's shapes, and K1 and K5 at
    lanes of 8 bytes; for every kernel also a second reading, the device's
@@ -57,8 +62,10 @@ Phases (any failure exits non-zero and prints no result line):
    (a) canonical containers of 100 MiB of textlike data (seed 42), a
    16 MiB uniform-random file and the ~15 MB Fibonacci file: K1, K2, K3,
    K3 exactly once per piece of pass 1, K1 and S1 once per pass-2 chunk,
-   S2 and K2 once per decode group, and no host stitch, shifting sink
-   write, lane padding or host row gather called on the card's path
+   S2 and K2 once per decode group, C1 once per chunk and per group (the
+   tracer's ``crc_device_bytes`` each call's file), and no host stitch,
+   shifting sink write, lane padding, host row gather or host CRC
+   (``native.crc32_blocks``) called on the card's path
    (there, and in (b)-(d), each such call fails the run); then the textlike file in 16 MiB
    chunks under ``torch.profiler`` in a child process, whose trace must
    show pass 1 as one
@@ -89,8 +96,8 @@ Phases (any failure exits non-zero and prints no result line):
    written by the host writer (K2) and by the ``.hff`` to ``.hf2``
    transcode (K4: its tree is not canonical), each decoded on the card by
    ``read_decompress_write_hf2`` with every count set to 0 just before
-   it: no call handed to the host decoder, no host stage, S2 and the
-   decoder once per decode group, every block on the global-rows route,
+   it: no call handed to the host decoder, no host stage, S2, the
+   decoder and C1 once per decode group, every block on the global-rows route,
    exact; then K2 and K4 on S2's rows of the first decode group of each
    64 KiB container (1,024 blocks of ~9,300 words) against their plain
    versions and the source, timed (card, alone, plain, the bound of the
@@ -139,8 +146,8 @@ Every phase's launch counts include S1 and S2 (``kernels.stitch_lanes``,
 one S2 for each decoder launch of the device reader.
 
 The line before the last is ``{"kernels": [...]}`` (the five kernels, the
-decoders' two global-rows routes as phase 4f measures them, ``stitch`` and
-``lane_rows``); the last line is
+decoders' two global-rows routes as phase 4f measures them, ``stitch``,
+``lane_rows`` and ``crc``); the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of JAX, and nothing of the JAX
 package, is imported.
 """
@@ -290,7 +297,7 @@ def same_file(a: str, b: str) -> bool:
 # the port's kernel names, as a device trace shows them
 KERNEL_NAMES = ("encode_tiles", "decode_rows_kernel",
                 "decode_rows_general_kernel", "hist256_kernel",
-                "stitch_kernel", "lane_rows_kernel")
+                "stitch_kernel", "lane_rows_kernel", "crc32_spans_kernel")
 
 
 def phase6_cli(work: str, dev, card: str, reset, read, np) -> None:
@@ -652,6 +659,61 @@ def phase3_host_stages(dev, card: str, np, torch, cases: dict, tree_of,
     return timing, moved
 
 
+def phase3_crc(dev, card: str, np, torch, text, errs: dict):
+    """C1 (``kernels.crc32_spans``) against its plain version on the card
+    and the host runtime's ``crc32_blocks`` (zlib's CRCs): the main path's
+    64 MiB chunk of 64 KiB spans, its ragged end, 1 MiB blocks' spans, a
+    decode group's head and short end, and 384-byte blocks' spans 3 bytes
+    off an allocation; then timed on the 64 MiB chunk (card, alone, the
+    wrapper's host time per call, plain, the host CRC it replaces, the
+    bound).  The error goes into ``errs["crc"]``; returns (timing, bytes
+    moved) as :func:`phase3_host_stages` does."""
+    from tpuhuff_torch import native
+    from tpuhuff_torch.kernels import crc32_spans, crc32_spans_reference
+
+    chunk = 64 << 20
+    data = text[:chunk + 16]
+    d_data = torch.from_numpy(data).to(dev)
+    cases = [("64 MiB chunk, 64 KiB spans", chunk, 65536, 0, 0),
+             ("its ragged end", chunk - 12_345, 65536, 0, 0),
+             ("1 MiB spans", (8 << 20) + 7, 1 << 20, 0, 0),
+             ("a group's head and short end", 3 * 65536 + 7, 65536, 65535, 0),
+             ("384-byte blocks, 3 bytes off", 1_000_003, 65280, 1, 3)]
+    for name, n, span, head, off in cases:
+        t = d_data[off:off + n]
+        got = crc32_spans(t, n, span, head).cpu().numpy().view(np.uint32)
+        host = data[off:off + n]
+        want = np.concatenate([
+            native.crc32_blocks(host[:head], max(head, 1)) if head else
+            np.zeros(0, dtype=np.uint32),
+            native.crc32_blocks(host[head:], span)])
+        err = int(np.count_nonzero(got != want)) + abs(got.size - want.size)
+        if n <= 8 << 20:
+            plain = crc32_spans_reference(t, n, span, head)
+            err += int(np.count_nonzero(
+                plain.cpu().numpy().view(np.uint32) != want))
+        errs["crc"] = max(errs["crc"], err)
+        log(f"phase 3: crc32_spans {name}: {got.size} CRCs of {n} B, "
+            f"{err} differ from the host runtime's and the plain version's")
+    t = d_data[:chunk]
+    moved = {"crc": chunk + 4 * (chunk // 65536)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    native.crc32_blocks(data[:chunk], 65536)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    timing = {"crc": (cuda_ms(torch, lambda: crc32_spans(t, chunk, 65536)),
+                      cuda_ms(torch, lambda: crc32_spans_reference(
+                          t, chunk, 65536), reps=2), None)}
+    alone = spin_ms(torch, lambda: crc32_spans(t, chunk, 65536))
+    log(f"phase 3: crc32_spans at the main path's shapes (64 MiB, 64 KiB "
+        f"spans): kernel {timing['crc'][0]:.4f} ms, alone {alone[0]:.4f} ms, "
+        f"the wrapper's host time per call {alone[1]:.4f} ms, plain "
+        f"{timing['crc'][1]:.4f} ms, library none, host crc32_blocks "
+        f"{host_ms:.4f} ms, bound {moved['crc'] / HBM_BYTES_PER_MS:.4f} ms "
+        f"({moved['crc']} B at 3.35 TB/s) [{card}]")
+    return timing, moved
+
+
 def pass2_chunks(src: str, block_len: int = LANE) -> int:
     """The chunks pass 2 of the ``.hf2`` device writer encodes ``src`` in
     (default chunk, CRC column on): one K1 and one S1 launch each."""
@@ -675,8 +737,9 @@ class host_stages_forbidden:
     """While active, the host stages that the card's path no longer runs
     fail the run if anything calls them: the host stitch
     (``dist.stitch_words``, ``native.stitch_blocks``), the shifting sink
-    write (``_BitSink.write``), the lane padding (``pad_to_blocks``) and
-    the host row gather (``payload_to_lane_words``, ``native.extract_rows``)."""
+    write (``_BitSink.write``), the lane padding (``pad_to_blocks``), the
+    host row gather (``payload_to_lane_words``, ``native.extract_rows``)
+    and the host CRC (``native.crc32_blocks``: C1 takes the column)."""
 
     def __enter__(self):
         import tpuhuff_torch.dist as dist
@@ -692,7 +755,8 @@ class host_stages_forbidden:
                             (block, "pad_to_blocks"),
                             (kernels, "payload_to_lane_words"),
                             (decode, "payload_to_lane_words"),
-                            (native, "extract_rows")):
+                            (native, "extract_rows"),
+                            (native, "crc32_blocks")):
             self.saved.append((owner, name, getattr(owner, name)))
 
             def forbidden(*args, _name=name, **kw):
@@ -983,8 +1047,9 @@ def phase4f_wide_blocks(work: str, dev, card: str, reset, read, errs: dict,
             other = "decode_general" if key == "decode" else "decode"
             want = {key: groups, f"{key}_global_rows": groups,
                     f"{key}.blocks": B, f"{key}.global_blocks": B,
-                    "lane_rows": groups, other: 0, f"{other}_global_rows": 0,
-                    f"{other}.blocks": 0, f"{other}.global_blocks": 0}
+                    "lane_rows": groups, "crc": groups, other: 0,
+                    f"{other}_global_rows": 0, f"{other}.blocks": 0,
+                    f"{other}.global_blocks": 0}
             got = {k: c[k] for k in want}
             if got != want or any(c[k] for k in c if k not in want):
                 fail(f"4f {label}: launches {c}, want {want} and no other")
@@ -1390,6 +1455,7 @@ def main() -> None:
     from tpuhuff_torch.kernels import (
         LUT_BITS,
         _build,
+        crc32_spans,
         decode_rows,
         decode_rows_general,
         decode_rows_general_reference,
@@ -1489,7 +1555,8 @@ def main() -> None:
     rng_k5 = np.random.default_rng(5)  # the earlier phases keep their inputs
     errs = {"encode": 0, "encode_hist": 0, "decode": 0, "decode_general": 0,
             "histogram": 0, "decode_global_rows": 0,
-            "decode_general_global_rows": 0, "stitch": 0, "lane_rows": 0}
+            "decode_general_global_rows": 0, "stitch": 0, "lane_rows": 0,
+            "crc": 0}
 
     def poison(lanes, etab):
         """Fill the allocator's blocks of the words' size with 0xFF and free
@@ -1783,6 +1850,9 @@ def main() -> None:
     # the host stages on the card: the stitch S1 and the row gather S2
     stage_timing, stage_moved = phase3_host_stages(dev, card, np, torch, cases,
                                                    tree_of, errs)
+    crc_timing, crc_moved = phase3_crc(dev, card, np, torch, text, errs)
+    stage_timing.update(crc_timing)
+    stage_moved.update(crc_moved)
     if any(errs.values()):
         fail(f"kernels disagree with their plain versions: {errs}")
 
@@ -1988,7 +2058,8 @@ def main() -> None:
                 "histogram": (histogram, "launches"),
                 "decode_global_rows": (decode_rows, "global_launches"),
                 "decode_general_global_rows": (decode_rows_general,
-                                               "global_launches")}
+                                               "global_launches"),
+                "crc": (crc32_spans, "launches")}
 
     def reset():
         for fn, attr in counters.values():
@@ -2067,9 +2138,17 @@ def main() -> None:
         if (launches["lane_rows"], launches["decode"]) != (groups, groups):
             fail(f"4a: S2 {launches['lane_rows']} and K2 {launches['decode']} "
                  f"launches for {groups} decode groups")
+        if launches["crc"] != chunks + groups:
+            fail(f"4a: C1 {launches['crc']} launches for {chunks} chunks and "
+                 f"{groups} decode groups")
+        crc_bytes = [r.counters["crc_device_bytes"].n for r in traced.records]
+        if crc_bytes != [s for s in sizes for _ in range(3)]:
+            fail(f"4a: the card took the CRCs of {crc_bytes} bytes, not each "
+                 f"call's file {sizes}")
         log(f"phase 4a: S1 once per pass-2 chunk ({chunks} chunks), S2 once "
-            f"per decode group ({groups} groups); no host stitch, shifting "
-            "sink write, lane padding or host row gather ran")
+            f"per decode group ({groups} groups), C1 once per each; the "
+            "card took every call's CRCs; no host stitch, shifting sink "
+            "write, lane padding, host row gather or host CRC ran")
         # the two-pass route: no room on the card, and a sampled pass 1;
         # pass 2 reads the file again
         textlike = os.path.join(work, "textlike.bin")
@@ -2335,7 +2414,8 @@ def main() -> None:
                            "tpuhuff/kernels/pallas_decode.py:269"),
         "histogram": ("tpuhuff_torch/csrc/histogram.cu",
                       "tpuhuff/kernels/pallas_histogram.py:139"),
-        # no Pallas kernel computes these two: the host functions they stand for
+        # no Pallas kernel computes these three: the host functions they
+        # stand for
         "stitch": ("tpuhuff_torch/csrc/stitch.cu + "
                    "tpuhuff_torch/csrc/stitch_common.cuh",
                    "tpuhuff/dist/__init__.py:33 (stitch_words, host)"),
@@ -2343,6 +2423,10 @@ def main() -> None:
                       "tpuhuff_torch/csrc/lane_rows_common.cuh",
                       "tpuhuff/kernels/decode.py:88 (payload_to_lane_words, "
                       "host)"),
+        "crc": ("tpuhuff_torch/csrc/crc32.cu + "
+                "tpuhuff_torch/csrc/crc32_common.cuh",
+                "none: the .hf2 CRC column, on the host before "
+                "(tpuhuff/io/stream.py, crc32_blocks)"),
     }
     timing.update(stage_timing)
     bound.update({k: b / HBM_BYTES_PER_MS for k, b in stage_moved.items()})

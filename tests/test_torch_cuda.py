@@ -614,3 +614,118 @@ def test_file_path_at_wide_blocks(dev, tmp_path, block_len, full, chunk,
     assert "host_route_bytes" not in rec.counters
     assert rec.counters["global_rows_blocks"].n == B
     assert np.array_equal(np.fromfile(out, dtype=np.uint8), data)
+
+
+# -- C1: the .hf2 CRC column on the card --
+
+def _crc_want(data: np.ndarray, n: int, span: int, head: int) -> np.ndarray:
+    import zlib
+
+    out = [zlib.crc32(data[:head].tobytes())] if head else []
+    out += [zlib.crc32(data[p:min(p + span, n)].tobytes())
+            for p in range(head, n, span)]
+    return np.array(out, dtype=np.uint32)
+
+
+@pytest.mark.parametrize("n,span,head,offset", [
+    (64 << 20, 65536, 0, 0),            # a chunk of the cells' spans
+    ((64 << 20) - 12_345, 65536, 0, 0),  # its ragged end
+    ((8 << 20) + 7, 1 << 20, 0, 0),      # 1 MiB blocks' spans
+    (3 * 65536 + 7, 65536, 65535, 0),    # a group's head, then a short end
+    (1_000_003, 65280, 1, 3),            # 384-byte blocks, unaligned
+    (300 * 3 + 7, 300, 299, 1),
+    (1, 1, 0, 0), (0, 65536, 0, 0)])
+def test_crc_kernel_matches_plain_and_zlib(dev, n, span, head, offset):
+    """C1 against its plain version and zlib, one launch counted with its
+    bytes; data at ``offset`` bytes past an allocation."""
+    from tpuhuff_torch.kernels import crc32_spans, crc32_spans_reference
+
+    data = np.random.default_rng(n + span).integers(0, 256, n + offset + 5,
+                                                    dtype=np.uint8)
+    want = _crc_want(data[offset:], n, span, head)
+    t = torch.from_numpy(data).to(dev)[offset:offset + n + 5]
+    before = crc32_spans.launches, crc32_spans.bytes
+    got = crc32_spans(t, n, span, head)
+    torch.cuda.synchronize()
+    assert np.array_equal(got.cpu().numpy().view(np.uint32), want)
+    assert crc32_spans.launches - before[0] == (1 if want.size else 0)
+    assert crc32_spans.bytes - before[1] == (n if want.size else 0)
+    if n <= 8 << 20:
+        plain = crc32_spans_reference(t.cpu(), n, span, head)
+        assert np.array_equal(plain.numpy().view(np.uint32), want)
+
+
+@pytest.mark.parametrize("route,block_len", [("resident", 256),
+                                             ("two_pass", 256),
+                                             ("host writer", 65536)])
+def test_file_calls_take_no_host_crc(dev, tmp_path, monkeypatch, route,
+                                     block_len):
+    """With the host runtime's ``crc32_blocks`` made to raise, the card's
+    file calls still round-trip: the compress routes write the host
+    writer's bytes, and the decode checks the column on the card (at 64
+    KiB blocks too); ``crc_device_bytes`` is each call's data."""
+    from tpuhuff_torch.io import read_compress_write_hf2, read_decompress_write_hf2
+    from tpuhuff_torch.io import stream
+    from tpuhuff_torch.io.host import read_compress_write_hf2_host
+    from tpuhuff_torch.kernels import crc32_spans
+    from tpuhuff_torch.profiling import StageTimer, tracing
+
+    data = make_textlike(5_000_003, np, seed=7)
+    src, port, host, out = (str(tmp_path / k) for k in ("s", "p", "h", "o"))
+    data.tofile(src)
+    read_compress_write_hf2_host(src, host, block_len=block_len,
+                                 max_code_len=32)
+
+    def host_crc(*a, **k):
+        raise AssertionError("the host CRC ran in a device call")
+
+    monkeypatch.setattr(native, "crc32_blocks", host_crc)
+    if route == "two_pass":
+        monkeypatch.setattr(stream, "_device_free_bytes", lambda d: 0)
+    before = crc32_spans.launches
+    t = StageTimer()
+    with tracing(t):
+        if route != "host writer":
+            read_compress_write_hf2(src, port, device=dev, block_len=256,
+                                    chunk_bytes=1 << 20)
+        read_decompress_write_hf2(port if route != "host writer" else host,
+                                  out, device=dev, chunk_bytes=1 << 20)
+    torch.cuda.synchronize()
+    if route != "host writer":
+        assert open(port, "rb").read() == open(host, "rb").read()
+        comp = t.records[0]
+        assert comp.counters["crc_device_bytes"].n == data.size
+        assert ("resident_bytes" in comp.counters) == (route == "resident")
+    assert t.records[-1].counters["crc_device_bytes"].n == data.size
+    assert np.array_equal(np.fromfile(out, dtype=np.uint8), data)
+    chunks = 0 if route == "host writer" else -(-data.size // (1 << 20))
+    blocks = -(-data.size // block_len)
+    groups = -(-blocks // stream._group_blocks(block_len, 1 << 20))
+    assert crc32_spans.launches - before == chunks + groups  # one each
+
+
+@pytest.mark.parametrize("block_len", [256, 65536])
+def test_flipped_byte_caught_on_the_card(dev, tmp_path, block_len):
+    """A flipped payload byte in the second decode group raises
+    ``CorruptData`` from the card's CRCs; the output holds the first
+    group alone."""
+    from tpuhuff_torch.io import read_decompress_write_hf2, stream
+    from tpuhuff_torch.io.hff import read_hf2_header
+    from tpuhuff_torch.io.host import StreamError, read_compress_write_hf2_host
+
+    data = make_textlike(3_000_000, np, seed=9)
+    src, hf2, out = (str(tmp_path / k) for k in ("s", "c.hf2", "o"))
+    data.tofile(src)
+    read_compress_write_hf2_host(src, hf2, block_len=block_len,
+                                 max_code_len=32)
+    group = stream._group_blocks(block_len, 1 << 20)
+    with open(hf2, "rb") as fp:
+        hdr = read_hf2_header(fp)
+    ends = hdr.end_bits.astype(np.int64)
+    raw = bytearray(open(hf2, "rb").read())
+    raw[hdr.payload_offset + (int(ends[group]) + int(ends[group + 1])) // 16] ^= 0x20
+    open(hf2, "wb").write(bytes(raw))
+    with pytest.raises(StreamError) as err:
+        read_decompress_write_hf2(hf2, out, device=dev, chunk_bytes=1 << 20)
+    assert err.value.kind == "CorruptData"
+    assert open(out, "rb").read() == data[:group * block_len].tobytes()

@@ -361,3 +361,116 @@ def test_dataset_small_chunks_carry_bits_across_boundaries(tmp_path,
     decs = decompress_dataset(outs, out_dir=str(tmp_path / "dec"), device="cpu")
     for src, dec in zip(srcs, decs):
         assert open(dec, "rb").read() == open(src, "rb").read()
+
+
+# -- the CRC column, taken on the device (C1's plain version here) --
+
+def _flip_in_block(path, block, bit=0x20):
+    """Flip one bit of a byte in the middle of ``block``'s payload."""
+    from tpuhuff_torch.io.hff import read_hf2_header
+
+    with open(path, "rb") as fp:
+        hdr = read_hf2_header(fp)
+    ends = hdr.end_bits.astype(np.int64)
+    start = int(ends[block - 1]) if block else 0
+    raw = bytearray(open(path, "rb").read())
+    raw[hdr.payload_offset + (start + int(ends[block])) // 16] ^= bit
+    open(path, "wb").write(bytes(raw))
+
+
+@pytest.mark.parametrize("route", ["two_pass", "resident"])
+def test_hf2_crc_column_taken_on_the_device(tmp_path, monkeypatch, route):
+    """With the host runtime's ``crc32_blocks`` made to raise, the device
+    writer on both routes still writes the JAX device writer's and the
+    port's host writer's bytes, and the reader restores the source; the
+    tracer's ``crc_device_bytes`` is the file's bytes in each call."""
+    from tpuhuff_torch import native
+    from tpuhuff_torch.io import stream as port_stream
+    from tpuhuff_torch.io.host import read_compress_write_hf2_host
+
+    n = 300_001
+    src, data = _src(tmp_path, n, seed=12)
+    port, dev, host = (str(tmp_path / f"{k}.hf2") for k in ("p", "d", "h"))
+    jax_stream.read_compress_write_hf2(src, dev, device=True, block_len=256)
+    read_compress_write_hf2_host(src, host, block_len=256, max_code_len=32)
+
+    def host_crc(*a, **k):
+        raise AssertionError("the host CRC ran in a device call")
+
+    monkeypatch.setattr(native, "crc32_blocks", host_crc)
+    monkeypatch.setattr(port_stream, "_resident",
+                        lambda *a: route == "resident")
+    out = str(tmp_path / "p.out")
+    t = StageTimer()
+    with tracing(t):
+        read_compress_write_hf2(src, port, device="cpu", block_len=256,
+                                chunk_bytes=64 * 1024)
+        read_decompress_write_hf2(port, out, device="cpu",
+                                  chunk_bytes=64 * 1024)
+    got = open(port, "rb").read()
+    assert got == open(dev, "rb").read() == open(host, "rb").read()
+    assert open(out, "rb").read() == data.tobytes()
+    comp, dec = t.records
+    assert comp.counters["crc_device_bytes"].n == n
+    assert dec.counters["crc_device_bytes"].n == n
+    assert ("resident_bytes" in comp.counters) == (route == "resident")
+
+
+def test_hf2_check_off_takes_no_crc(tmp_path, monkeypatch):
+    """``check=False``: no C1 call in either direction, and no
+    ``crc_device_bytes``; with the check on, one a chunk and a group."""
+    from tpuhuff_torch.io import stream as port_stream
+
+    calls = []
+    real = port_stream.crc32_spans
+    monkeypatch.setattr(port_stream, "crc32_spans",
+                        lambda *a, **k: calls.append(a[1]) or real(*a, **k))
+    src, data = _src(tmp_path, 200_000, seed=13)
+    for check in (False, True):
+        cont, out = str(tmp_path / f"{check}.hf2"), str(tmp_path / "o")
+        t = StageTimer()
+        with tracing(t):
+            read_compress_write_hf2(src, cont, device="cpu", check=check,
+                                    chunk_bytes=64 * 1024)
+            read_decompress_write_hf2(cont, out, device="cpu", check=check,
+                                      chunk_bytes=64 * 1024)
+        assert open(out, "rb").read() == data.tobytes()
+        if not check:
+            assert calls == []
+            assert all("crc_device_bytes" not in r.counters
+                       for r in t.records)
+    # 4 compress chunks of 64 KiB, the last short; 1 decode group
+    assert calls == [65536, 65536, 65536, 200_000 - 3 * 65536, 200_000]
+
+
+@pytest.mark.parametrize("case", ["blocks_256", "straddle"])
+def test_hf2_flipped_byte_caught_before_its_group_is_written(tmp_path, case):
+    """A flipped payload byte in the second decode group raises
+    ``CorruptData``, and the output holds the first group alone.  At 256 B
+    blocks the groups end on span boundaries; at 384 B (host writer, spans
+    of 170 blocks) the group boundary cuts a span, whose head the second
+    group's CRC is folded onto."""
+    from tpuhuff_torch.io import stream as port_stream
+    from tpuhuff_torch.io.host import read_compress_write_hf2_host
+
+    block = 256 if case == "blocks_256" else 384
+    n = 700_000 if case == "blocks_256" else 900_000
+    src, data = _src(tmp_path, n, seed=14)
+    cont = str(tmp_path / "c.hf2")
+    if case == "blocks_256":
+        read_compress_write_hf2(src, cont, device="cpu", block_len=block)
+    else:
+        read_compress_write_hf2_host(src, cont, block_len=block,
+                                     max_code_len=32)
+    chunk = 64 * 1024
+    group = port_stream._group_blocks(block, chunk) * block
+    span = (65536 // block) * block
+    assert (group % span != 0) == (case == "straddle")
+    out = str(tmp_path / "o")
+    read_decompress_write_hf2(cont, out, device="cpu", chunk_bytes=chunk)
+    assert open(out, "rb").read() == data.tobytes()  # no false alarm
+    _flip_in_block(cont, group // block + 3)
+    with pytest.raises(StreamError) as err:
+        read_decompress_write_hf2(cont, out, device="cpu", chunk_bytes=chunk)
+    assert err.value.kind == "CorruptData"
+    assert open(out, "rb").read() == data[:group].tobytes()

@@ -284,17 +284,23 @@ def test_bus_counters_match_the_copies(tmp_path, card, monkeypatch, route):
         assert comp.counters["h2d_bytes"].n == n + padded + enc_tables
         # pass 2's lanes pass through a pinned buffer allocated anew
         assert comp.spans["pin_alloc"].bytes >= padded
-    # block bit sums (int64), the missing count, the payload, the counts
-    assert comp.counters["d2h_bytes"].n == 8 * B + 8 + payload + 256 * 8
+    spans = -(-n // 65536)  # the CRC column's spans, one uint32 each
+    # block bit sums (int64), the missing count, the payload, the counts,
+    # the CRCs
+    assert comp.counters["d2h_bytes"].n == (8 * B + 8 + payload + 256 * 8
+                                            + 4 * spans)
     _, tables = decoder_for(hdr.tree)
     # the payload, the blocks' bit counts (int32) and start bits (int64),
     # the decode tables
     assert dec.counters["h2d_bytes"].n == (payload + 4 * B + 8 * B
                                            + _table_tensor_bytes(tables))
-    assert dec.counters["d2h_bytes"].n == B * block
-    # launches: K3, K1, S1 in compress; S2, K2 in decompress
-    assert comp.spans["launch"].calls == 3
-    assert dec.spans["launch"].calls == 2
+    assert dec.counters["d2h_bytes"].n == B * block + 4 * spans
+    # launches: K3, K1, S1, C1 in compress; S2, K2, C1 in decompress
+    assert comp.spans["launch"].calls == 4
+    assert dec.spans["launch"].calls == 3
+    # the card took every byte's CRC, and no host CRC ran
+    assert comp.counters["crc_device_bytes"].n == n
+    assert dec.counters["crc_device_bytes"].n == n
     # the decoded output passes through a pinned buffer allocated anew
     assert dec.spans["pin_alloc"].bytes >= B * block
 

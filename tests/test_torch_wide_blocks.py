@@ -120,6 +120,29 @@ def test_wide_blocks_flipped_payload_byte_is_corrupt(tmp_path):
     assert err.value.kind == "CorruptData"
 
 
+def test_wide_block_flipped_byte_caught_before_it_is_written(tmp_path):
+    """At 64 KiB blocks (one short block: the plain decoders step once a
+    position of the row, ~9 s) a flipped payload byte raises
+    ``CorruptData`` from the CRCs taken of the decoded group, and no byte
+    of it is written."""
+    data = _text(5000, 2)
+    src, path = tmp_path / "src.bin", str(tmp_path / "c.hf2")
+    data.tofile(src)
+    read_compress_write_hf2_host(str(src), path, block_len=65536,
+                                 canonical=True, max_code_len=32)
+    raw = bytearray(open(path, "rb").read())
+    raw[-1500] ^= 0x20
+    open(path, "wb").write(bytes(raw))
+    out = str(tmp_path / "bad.out")
+    with open(path, "rb") as fp, open(out, "wb") as dst:
+        hdr = _read_header(fp, path)
+        assert (hdr.block_len, hdr.num_blocks, hdr.crc_every) == (65536, 1, 1)
+        with pytest.raises(StreamError) as err:
+            port_stream._decode_groups(hdr, fp, dst, path, CPU, 64 << 20, True)
+    assert err.value.kind == "CorruptData"
+    assert os.path.getsize(out) == 0
+
+
 @pytest.mark.parametrize("block_len,chunk,blocks", [
     (256, 64 << 20, 262_144),
     (65536, 64 << 20, 1024),

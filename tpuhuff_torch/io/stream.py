@@ -13,20 +13,21 @@ pass 2 encodes each chunk's 256-byte lanes on the device
 (:func:`encode_blocks`; with ``collect_hist`` the same launches count the
 bytes, config 4's adaptive refresh) and stitches them there into the
 payload's bytes, the previous chunk's trailing bits carried in on the
-device (:func:`stitch_lanes`), while the host patches the block table and
-CRC column and writes the previous chunk's bytes, which it copies back
+device (:func:`stitch_lanes`) and takes the chunk's CRC column there
+(:func:`crc32_spans`), while the host patches the block table and CRC
+column and writes the previous chunk's bytes, which it copies back
 alone.  Pass 1 reads each chunk straight into a pinned buffer and
 copies it to the device.  Where it counts every byte on a CUDA device
 and the file fits in half the memory the device can give
 (:func:`_resident`), each byte is read and copied to the device once:
-pass 1 takes each chunk's CRC column in the pinned buffer and keeps the
-chunk in a device copy of the file, from which pass 2 encodes.  Else
-pass 2 reads each chunk again, straight into a pinned buffer, and copies
-it.  Decompress copies
+pass 1 keeps each chunk in a device copy of the file, from which pass 2
+encodes.  Else pass 2 reads each chunk again, straight into a pinned
+buffer, and copies it.  Decompress copies
 each group's payload bytes to the device, cuts the blocks' rows out of
 them there (:func:`lane_rows`), decodes them (:func:`decode_rows` for
 canonical codes, :func:`decode_rows_general` for any other tree) and
-verifies the CRCs.
+takes the decoded bytes' CRCs there (:func:`crc32_spans`), which the
+host checks against the stored column before it writes the group.
 
 Pipelining: launches are asynchronous on the current CUDA stream, host
 buffers are pinned, copies are ``non_blocking``, and the only sync point is
@@ -43,9 +44,10 @@ write (with their bytes), and in the kernel wrappers (``launch``);
 counters ``h2d_bytes`` and ``d2h_bytes`` (on the CPU, where no copy is
 made, the bytes a copy would move), ``resident_bytes`` (the input
 bytes pass 2 encoded from the device copy), ``host_route_bytes`` (the
-output bytes of a decompress handed to the host decoder) and, in the
-decoders' wrappers, ``global_rows_blocks`` (the blocks decoded on their
-global-rows route).
+output bytes of a decompress handed to the host decoder), in the
+decoders' wrappers ``global_rows_blocks`` (the blocks decoded on their
+global-rows route), and in :func:`crc32_spans` ``crc_device_bytes`` (the
+bytes whose CRC the device took).
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import native, profiling
+from .. import profiling
 from ..core.canonical import build_tree_for_device
 from ..core.format import CompressError
 from ..core.tree import HuffTree
@@ -64,6 +66,7 @@ from ..core.weights import ByteWeights
 from ..dist.block import lane_of
 from ..dist.mesh import resolve_device as _resolve
 from ..kernels import (
+    crc32_spans,
     decoder_for,
     encode_blocks,
     histogram,
@@ -73,6 +76,7 @@ from ..kernels import (
     stitch_lanes,
 )
 from ..profiling import count, span
+from .crc import crc32_combine
 from .host import (
     DEFAULT_BLOCK,
     DEVICE_HF2_BLOCK,
@@ -81,7 +85,6 @@ from .host import (
     _block_bits,
     _check_sizes,
     _chunk_step,
-    _CrcVerifier,
     _HffSink,
     _pipeline,
     _read_header,
@@ -247,7 +250,8 @@ class _Chunk:
     """One encoded chunk, as the byte-aligned sinks take it: ``full``, the
     stream's whole bytes (the first completing the bits carried in),
     ``nbits`` the chunk's own bits, the new partial byte and its bit count,
-    the per-block bit lengths and the (256,) counts or None."""
+    the per-block bit lengths, the (256,) counts or None, and the chunk's
+    CRC column or None."""
 
     full: np.ndarray
     nbits: int
@@ -255,6 +259,7 @@ class _Chunk:
     partial_bits: int
     bit_lens: np.ndarray
     hist: np.ndarray | None
+    crcs: np.ndarray | None = None
 
     def payload(self) -> bytes:
         """The chunk's bytes, its partial byte last (for a chunk encoded
@@ -279,16 +284,18 @@ class _DeviceBlockEncoder:
     chunk's bytes, ``hist_data`` the lanes), the device stitch S1
     (:func:`stitch_lanes`), which takes the previous chunk's trailing bits
     from the carry its stitch left on the device, and the per-block bit
-    sums and the summed missing count, copied back.  :meth:`collect` waits
-    for those, then copies back exactly the chunk's stream bytes on a side
-    stream, and subtracts the lanes' zero padding from bin 0 of the
-    counts, as the JAX route does.  Chunks must be collected in the order
-    they were submitted; ``fresh=True`` starts a stream of its own."""
-
-    names = ("sums", "miss", "hist")
+    sums and the summed missing count, copied back; with ``crc_span``
+    (the ``.hf2`` writer's CRC span in bytes) also C1
+    (:func:`crc32_spans`), the chunk's CRC column from the same lanes,
+    copied back with them.  :meth:`collect` waits for those, then copies
+    back exactly the chunk's stream bytes on a side stream, and subtracts
+    the lanes' zero padding from bin 0 of the counts, as the JAX route
+    does.  Chunks must be collected in the order they were submitted;
+    ``fresh=True`` starts a stream of its own."""
 
     def __init__(self, tree: HuffTree, block_len: int, device: torch.device,
-                 staging: _Staging, collect_hist: bool = False):
+                 staging: _Staging, collect_hist: bool = False,
+                 crc_span: int = 0):
         with span("tables"):
             self.tables = _tables_to(
                 make_encode_tables(*tree.encode_tables()), device)
@@ -297,6 +304,7 @@ class _DeviceBlockEncoder:
         self.per_block = block_len // self.lane
         self.device, self.staging = device, staging
         self.collect_hist = collect_hist
+        self.crc_span = crc_span        # bytes a CRC covers; 0: no column
         self.carry = new_carry(device)  # the stream's trailing bits, on the device
         self.carry_bits = 0             # their count, as the host knows it
         self._read = {}                 # slot -> the buffer read() filled
@@ -340,8 +348,8 @@ class _DeviceBlockEncoder:
 
     def _launch(self, lanes: torch.Tensor, n: int, slot: int,
                 fresh: bool = False):
-        """K1 (K5), S1 and the small D2H of the ``n`` bytes at the start of
-        the device tensor ``lanes``, which holds whole blocks."""
+        """K1 (K5), S1, C1 and the small D2H of the ``n`` bytes at the
+        start of the device tensor ``lanes``, which holds whole blocks."""
         if fresh:
             self.carry, self.carry_bits = new_carry(self.device), 0
         nbytes = lanes.numel()
@@ -352,11 +360,14 @@ class _DeviceBlockEncoder:
                             hist_data=lanes if self.collect_hist else None)
         words, bits, miss = out[:3]
         payload, self.carry = stitch_lanes(words, bits, self.carry)
-        small = (bits.view(-1, self.per_block).sum(1), miss.sum().view(1))
+        small = {"sums": bits.view(-1, self.per_block).sum(1),
+                 "miss": miss.sum().view(1)}
         if self.collect_hist:
-            small += (out[3],)
-        host = tuple(self.staging.d2h(t, (name, slot))
-                     for name, t in zip(self.names, small))
+            small["hist"] = out[3]
+        if self.crc_span:
+            small["crc"] = crc32_spans(lanes, n, self.crc_span)
+        host = {name: self.staging.d2h(t, (name, slot))
+                for name, t in small.items()}
         return host, payload, nbytes - n, slot, self.staging.fence()
 
     def collect(self, handle) -> _Chunk:
@@ -366,9 +377,9 @@ class _DeviceBlockEncoder:
             if done is not None:
                 done.synchronize()
         with span("collect"):
-            if int(host[1][0]):
+            if int(host["miss"][0]):
                 raise CompressError("letter not found in codes", None)
-            bit_lens = host[0].numpy().astype(np.uint64)  # a copy: slots are reused
+            bit_lens = host["sums"].numpy().astype(np.uint64)  # a copy: slots are reused
             nbits = int(bit_lens.sum())
             total = self.carry_bits + nbits
             stream = self.staging.fetch(payload[: (total + 7) // 8],
@@ -377,10 +388,14 @@ class _DeviceBlockEncoder:
             self.carry_bits = rem
             hist = None
             if self.collect_hist:
-                hist = host[2].numpy().astype(np.int64)
+                hist = host["hist"].numpy().astype(np.int64)
                 hist[0] -= pad  # the padding lanes' zeros
-            return _Chunk(stream[:full], nbits,
-                          int(stream[full]) if rem else 0, rem, bit_lens, hist)
+        crcs = None
+        if self.crc_span:
+            with span("crc"):
+                crcs = host["crc"].numpy().view(np.uint32).copy()
+        return _Chunk(stream[:full], nbits, int(stream[full]) if rem else 0,
+                      rem, bit_lens, hist, crcs)
 
 
 def read_compress_write_hf2(
@@ -402,7 +417,8 @@ def read_compress_write_hf2(
     of :func:`_sampled_pieces` and adds one to every bin.  The tree is
     length-limited to ``min(max_code_len, 32)`` bits and canonicalised
     when ``canonical``.  A ``tree`` with no code for some byte of the file
-    raises :class:`CompressError`.  ``check`` writes the CRC32 column.
+    raises :class:`CompressError`.  ``check`` writes the CRC32 column,
+    taken on the device from each chunk's lanes (:func:`crc32_spans`).
     ``collect_hist`` returns the file's exact (256,) int64 histogram,
     counted during pass 2 by the encode launches themselves (K5); else
     None is returned.  ``stats`` is taken for the JAX package's signature
@@ -413,9 +429,9 @@ def read_compress_write_hf2(
     whole blocks, takes at most half the memory the device can give at
     the call's start (:func:`_resident`: the card's free memory and what
     the caching allocator holds unused), the file is read once: pass 1
-    reads each chunk into a pinned buffer, computes its CRC column there,
-    and copies it into a device copy of the whole file, which pass 2
-    encodes without reading the file again (counter ``resident_bytes``).
+    reads each chunk into a pinned buffer and copies it into a device
+    copy of the whole file, which pass 2 encodes without reading the file
+    again (counter ``resident_bytes``).
     Else pass 2 reads and copies the file a second time, in chunks.  The
     device copy takes the padded file's bytes of device memory during
     the call; at its end PyTorch's caching allocator keeps them reserved
@@ -433,12 +449,11 @@ def read_compress_write_hf2(
         padded = max(1, -(-size // block_len)) * block_len
         resident = _resident(dev, size, padded, tree, hist_sample)
         with _open(src_path, "rb") as src, _open(dst_path, "wb") as dst:
-            copy, crcs = None, []
+            copy = None
             if tree is None:
                 if max(1, int(hist_sample)) == 1:
-                    counts, copy, crcs = _pass1(
-                        src, src_path, size, padded, step, span_bytes,
-                        staging, dev, resident)
+                    counts, copy = _pass1(src, src_path, size, padded, step,
+                                          staging, dev, resident)
                 else:
                     counts = _pass1_sampled(src, size, step, hist_sample,
                                             staging, dev)
@@ -446,36 +461,26 @@ def read_compress_write_hf2(
             tree, sink = _start_hf2(dst, tree, size, block_len, canonical,
                                     crc_every)
             encoder = _DeviceBlockEncoder(tree, block_len, dev, staging,
-                                          collect_hist)
+                                          collect_hist, crc_span=span_bytes)
             hist = np.zeros(256, dtype=np.int64) if collect_hist else None
 
-            def collect(pending) -> None:
-                handle, crcs = pending
+            def collect(handle) -> None:
                 c = encoder.collect(handle)
                 if c.hist is not None:
                     with span("collect"):
                         hist[:] += c.hist
                 with span("sink"):
                     sink.write_aligned(c.full, c.nbits, c.partial,
-                                       c.partial_bits, c.bit_lens, crcs)
+                                       c.partial_bits, c.bit_lens, c.crcs)
 
             if copy is not None:
-                _encode_resident(encoder, copy, size, step, crcs, collect)
+                _encode_resident(encoder, copy, size, step, collect)
             else:
                 # pass 2: chunk k+1 is read, copied and launched (its
-                # stitch too) before chunk k's bytes are copied back and
-                # written
+                # stitch and CRCs too) before chunk k's bytes are copied
+                # back and written
                 src.seek(0)
-
-                def submit(data: np.ndarray, slot: int):
-                    handle = encoder(data, slot)
-                    crcs = None
-                    if crc_every:
-                        with span("crc"):
-                            crcs = native.crc32_blocks(data, span_bytes)
-                    return handle, crcs
-
-                _pipeline(src, size, step, submit, collect,
+                _pipeline(src, size, step, encoder, collect,
                           lambda n, slot: encoder.read(src, n, slot))
             with span("sink"):
                 sink.finish()
@@ -503,21 +508,17 @@ def _resident(dev: torch.device, size: int, padded: int,
 
 
 def _pass1(src, src_path: str, size: int, padded: int, step: int,
-           span_bytes: int, staging: _Staging, dev: torch.device,
-           resident: bool):
+           staging: _Staging, dev: torch.device, resident: bool):
     """Pass 1 over every byte (span ``pass1``): each ``step`` chunk is read
     straight into a pinned slot, copied to the device and counted there,
     one histogram launch adding into the running counts.  With
     ``resident`` each chunk goes into its slice of a device copy of the
-    file (``padded`` bytes, zero past its end), and the host computes the
-    chunk's CRC column (``span_bytes`` spans; none if 0) in the slot
-    while the card copies and counts it.  Returns the (256,) counts, the
-    copy (None unless ``resident``) and the CRC columns."""
+    file (``padded`` bytes, zero past its end).  Returns the (256,)
+    counts and the copy (None unless ``resident``)."""
     with span("pass1"):
         copy = (torch.empty(padded, dtype=torch.uint8, device=dev)
                 if resident else None)
         acc = torch.zeros(256, dtype=torch.int64, device=dev)
-        crcs = []
         for k, lo in enumerate(range(0, size, step)):
             n = min(step, size - lo)
             key = ("hist", k % 2)
@@ -527,13 +528,10 @@ def _pass1(src, src_path: str, size: int, padded: int, step: int,
                                   "bytes")
             out = None if copy is None else copy[lo:lo + n]
             histogram(staging.to_device(buf, key, out=out), out=acc)
-            if copy is not None and span_bytes:
-                with span("crc"):
-                    crcs.append(native.crc32_blocks(buf.numpy(), span_bytes))
         counts = _fetch_counts(acc)
         if copy is not None:
             copy[size:].zero_()  # the last block's padding, read by its lanes
-    return counts, copy, crcs
+    return counts, copy
 
 
 def _pass1_sampled(src, size: int, step: int, hist_sample: int,
@@ -570,17 +568,17 @@ def _pass1_tree(counts: np.ndarray, size: int, hist_sample: int,
 
 
 def _encode_resident(encoder: _DeviceBlockEncoder, copy: torch.Tensor,
-                     size: int, step: int, crcs: list, collect) -> None:
+                     size: int, step: int, collect) -> None:
     """Pass 2 of the resident route: each ``step`` chunk's lanes are a
     view of the device copy, and chunk k+1 is launched before ``collect``
-    takes chunk k with its CRC column."""
+    takes chunk k."""
     pending = None
     for k, lo in enumerate(range(0, size, step)):
         n = min(step, size - lo)
         handle = encoder.on_device(copy, lo, n, k % 2)
         if pending is not None:
             collect(pending)
-        pending = handle, (crcs[k] if crcs else None)
+        pending = handle
     if pending is not None:
         collect(pending)
 
@@ -701,33 +699,83 @@ def _group_blocks(block_len: int, chunk: int) -> int:
     return min(n, max(1, ((1 << 31) - 1) // (block_len + 3)))
 
 
+class _ColumnCheck:
+    """The ``.hf2`` CRC column checked against CRCs that the device takes
+    of each decoded group (:func:`crc32_spans`), groups in file order.
+
+    A group at byte ``off`` of the output that starts inside a span (a
+    block length that does not divide the span, or a small
+    ``chunk_bytes``) has its head's CRC folded onto the CRC of the span's
+    part that the groups before it decoded (:func:`crc32_combine`); a
+    group that ends inside a span leaves that part's CRC to the next.
+    Every span is compared once complete (or at the output's end), and a
+    mismatch, or a span past the column's end, raises
+    ``StreamError(kind="CorruptData")``."""
+
+    def __init__(self, crcs: np.ndarray, span_bytes: int, size: int,
+                 path: str):
+        self.crcs = np.asarray(crcs, dtype=np.uint32)
+        self.span, self.size, self.path = span_bytes, size, path
+        self.partial = 0  # CRC of the span's part the groups before decoded
+
+    def launch(self, out: torch.Tensor, off: int, valid: int) -> torch.Tensor:
+        """C1 over the group's ``valid`` decoded bytes at ``off``."""
+        return crc32_spans(out, valid, self.span,
+                           min(-off % self.span, valid))
+
+    def _fail(self, k: int) -> None:
+        raise StreamError(f"{self.path!r} block CRC mismatch in span {k} "
+                          f"(corrupt payload or index)", "CorruptData")
+
+    def _compare(self, k: int, got: np.ndarray) -> None:
+        want = self.crcs[k:k + got.size]
+        if want.size < got.size:
+            self._fail(k + want.size)
+        bad = np.flatnonzero(got != want)
+        if bad.size:
+            self._fail(k + int(bad[0]))
+
+    def check(self, got: np.ndarray, off: int, valid: int) -> None:
+        """Compare the CRCs ``got`` of the group at ``off`` (uint32)."""
+        end = off + valid
+        k, into = divmod(off, self.span)
+        if into:
+            head = min(self.span - into, valid)
+            crc = crc32_combine(self.partial, int(got[0]), head)
+            got = got[1:]
+            if (off + head) % self.span and off + head != self.size:
+                self.partial = crc  # the group ends inside this span
+                return
+            self._compare(k, np.array([crc], dtype=np.uint32))
+            k += 1
+        if end % self.span and end != self.size:
+            self.partial = int(got[-1])
+            got = got[:-1]
+        self._compare(k, got)
+
+
 def _decode_groups(hdr, src, dst, src_path: str, dev: torch.device,
                    chunk: int, check: bool) -> None:
     """The device branch of :func:`read_decompress_write_hf2`."""
     with span("header"):
         _check_sizes(hdr, src_path)
         starts, ends = _block_bits(hdr, src_path)
-        verifier = None
+        column = None
         if check and hdr.crcs is not None and hdr.crc_every:
-            verifier = _CrcVerifier(hdr.crcs, hdr.crc_every * hdr.block_len,
-                                    src_path)
+            column = _ColumnCheck(hdr.crcs, hdr.crc_every * hdr.block_len,
+                                  hdr.orig_len, src_path)
     with span("tables"):
         decode, tables = decoder_for(hdr.tree)
         tables = _tables_to(tables, dev)
-
-    def emit(piece: np.ndarray) -> None:
-        dst.write(piece)
-        if verifier is not None:
-            with span("crc"):
-                verifier.feed(piece)
 
     B = hdr.num_blocks
     gsize = _group_blocks(hdr.block_len, chunk)
     staging = _Staging(dev)
 
     def submit_group(g0: int, slot: int):
-        """Read + H2D of the group's payload bytes, then the row gather S2
-        and the decoder on the device, and the D2H of the output."""
+        """Read + H2D of the group's payload bytes, then the row gather S2,
+        the decoder and C1 on the device, and the D2H of the output and
+        its CRCs."""
         with span("submit"):
             g1 = min(g0 + gsize, B)
             byte_lo = int(starts[g0]) // 8
@@ -748,7 +796,12 @@ def _decode_groups(hdr, src, dst, src_path: str, dev: torch.device,
                 tables, hdr.block_len)
             last = (hdr.orig_len - (B - 1) * hdr.block_len if g1 == B
                     else hdr.block_len)
-            return staging.d2h(out, ("out", slot)), last, staging.fence()
+            off = g0 * hdr.block_len
+            valid = (g1 - g0 - 1) * hdr.block_len + last
+            crcs = (None if column is None else
+                    staging.d2h(column.launch(out, off, valid), ("crc", slot)))
+            return (staging.d2h(out, ("out", slot)), crcs, off, valid, last,
+                    staging.fence())
 
     pending = None
     for k, g0 in enumerate(list(range(0, B, gsize)) + [None]):
@@ -756,18 +809,18 @@ def _decode_groups(hdr, src, dst, src_path: str, dev: torch.device,
         if g0 is not None:
             handle = submit_group(g0, k % 2)
         if pending is not None:
-            out, last, done = pending
+            out, crcs, off, valid, last, done = pending
             with span("sync.result"):
                 if done is not None:
                     done.synchronize()
+            if column is not None:
+                with span("crc"):
+                    column.check(crcs.numpy().view(np.uint32), off, valid)
             with span("collect"):
                 out = out.numpy()
                 if last != hdr.block_len:
-                    emit(out[:-1].reshape(-1))
-                    emit(out[-1, :last])
+                    dst.write(out[:-1].reshape(-1))
+                    dst.write(out[-1, :last])
                 else:
-                    emit(out.reshape(-1))
+                    dst.write(out.reshape(-1))
         pending = handle
-    if verifier is not None:
-        with span("crc"):
-            verifier.finish()

@@ -16,7 +16,10 @@
   bytes, behind a carried partial byte (the host's ``stitch_words``);
 * :func:`lane_rows` (S2, ``csrc/lane_rows.cu`` over
   ``csrc/lane_rows_common.cuh``) — the decoders' rows cut out of a payload
-  on the device (the host's ``payload_to_lane_words``).
+  on the device (the host's ``payload_to_lane_words``);
+* :func:`crc32_spans` (C1, ``csrc/crc32.cu`` over ``csrc/crc32_common.cuh``)
+  — the zlib CRC32 of each span of bytes on the device, the ``.hf2`` CRC
+  column (the host's ``crc32_blocks``; no TPU kernel).
 
 :func:`count_missing` and :func:`block_bit_lengths` are a LUT gather and a
 sum in PyTorch on the data's device (XLA, not Pallas, in the JAX package);
@@ -29,6 +32,7 @@ launches, and the CUDA branch is a ``launch`` span of the active tracer
 never at import.
 """
 
+from .crc import crc32_spans, crc32_spans_reference
 from .decode import (
     LUT_BITS,
     DecodeTables,
@@ -67,6 +71,8 @@ __all__ = [
     "GeneralDecodeTables",
     "block_bit_lengths",
     "count_missing",
+    "crc32_spans",
+    "crc32_spans_reference",
     "decode_hf2_device",
     "decode_rows",
     "decode_rows_general",

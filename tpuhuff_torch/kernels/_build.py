@@ -36,6 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_U = ctypes.c_uint
 # C signatures of csrc/*.cu (every pointer and the stream as c_void_p, so
 # ctypes never truncates a 64-bit address to a 32-bit int)
 _SIGNATURES = {
@@ -63,6 +64,10 @@ _SIGNATURES = {
     "tpuhuff_stitch_lanes": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     # payload, n, start_bits, rows, bit0, B, W, stream
     "tpuhuff_lane_rows": [_P, _L, _P, _P, _P, _I, _I, _P],
+    # data, n, span, head, piece, nseg, k_span, k_head, k_last, slices,
+    # fold, out, stream
+    "tpuhuff_crc32_spans": [_P, _L, _L, _L, _L, _I, _U, _U, _U, _P, _P, _P,
+                            _P],
 }
 
 _lock = threading.Lock()
