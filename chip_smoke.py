@@ -471,6 +471,7 @@ def phase3_host_stages(dev, card: str, np, torch, cases: dict, tree_of,
         make_encode_tables,
         new_carry,
         payload_to_lane_words,
+        row_width,
         stitch_lanes,
         stitch_lanes_reference,
     )
@@ -563,8 +564,11 @@ def phase3_host_stages(dev, card: str, np, torch, cases: dict, tree_of,
     starts = ends - bits.cpu().numpy()
 
     def check_s2(name, payload, starts, ends):
-        got = lane_rows(payload, starts, ends)
-        want = lane_rows_reference(payload, starts, ends)
+        d_starts = torch.from_numpy(np.asarray(starts, dtype=np.int64)).to(
+            payload.device)
+        width = row_width(starts, ends)
+        got = lane_rows(payload, d_starts, width)
+        want = lane_rows_reference(payload, d_starts, width)
         torch.cuda.synchronize()
         err = max(max_err(torch, g, w) for g, w in zip(got, want))
         errs["lane_rows"] = max(errs["lane_rows"], err)
@@ -602,6 +606,7 @@ def phase3_host_stages(dev, card: str, np, torch, cases: dict, tree_of,
         "lane_rows": pay.numel() + 8 * B + nbytes(rows, bit0),
     }
     W = rows.shape[1]
+    d_starts = torch.from_numpy(starts).to(dev)
     idx = torch.from_numpy(starts // 32).to(dev)[:, None] + torch.arange(
         W, device=dev)[None, :]
     padded = torch.zeros(4 * (int(idx.max()) + 1), dtype=torch.uint8,
@@ -620,17 +625,14 @@ def phase3_host_stages(dev, card: str, np, torch, cases: dict, tree_of,
         "stitch": (cuda_ms(torch, lambda: stitch_lanes(words, bits, c0)),
                    cuda_ms(torch, lambda: stitch_lanes_reference(
                        words, bits, c0), reps=2), None),
-        "lane_rows": (cuda_ms(torch, lambda: lane_rows(pay, starts, ends)),
+        "lane_rows": (cuda_ms(torch, lambda: lane_rows(pay, d_starts, W)),
                       cuda_ms(torch, lambda: lane_rows_reference(
-                          pay, starts, ends), reps=2),
+                          pay, d_starts, W), reps=2),
                       cuda_ms(torch, library_rows)),
     }
-    # S2's wrapper waits for its previous call's copy of the start bits
-    # (a pinned buffer it keeps), so behind a device spin it would wait for
-    # the spin: its device time alone is read from its C entry, the start
-    # bits already on the card, and its host time per call from the
-    # wrapper called back to back
-    d_starts = torch.from_numpy(starts).to(dev)
+    # S2's device time alone is read from its C entry, and its host time
+    # per call from the wrapper called back to back (the start bits on the
+    # card in both)
     r_out, b_out = torch.empty_like(rows), torch.empty_like(bit0)
 
     def rows_entry():
@@ -644,7 +646,7 @@ def phase3_host_stages(dev, card: str, np, torch, cases: dict, tree_of,
         fail("lane_rows: its C entry differs from the wrapper")
     t0 = time.perf_counter()
     for _ in range(5):
-        lane_rows(pay, starts, ends)
+        lane_rows(pay, d_starts, W)
     rows_host = (time.perf_counter() - t0) * 1e3 / 5
     torch.cuda.synchronize()
     alone = {"stitch": spin_ms(torch, lambda: stitch_lanes(words, bits, c0)),
@@ -950,6 +952,7 @@ def phase4f_wide_blocks(work: str, dev, card: str, reset, read, errs: dict,
         decode_tile_rows,
         decoder_for,
         lane_rows,
+        row_width,
     )
     from tpuhuff_torch.profiling import StageTimer, tracing
 
@@ -971,7 +974,8 @@ def phase4f_wide_blocks(work: str, dev, card: str, reset, read, errs: dict,
             payload = np.frombuffer(fp.read((int(ends[-1]) + 7) // 8),
                                     dtype=np.uint8)
         rows, b0 = lane_rows(torch.from_numpy(payload.copy()).to(dev),
-                             starts, ends)
+                             torch.from_numpy(starts).to(dev),
+                             row_width(starts, ends))
         nb = torch.from_numpy((ends - starts).astype(np.int32)).to(dev)
         tab = decoder_for(hdr.tree)[1].to(dev)
         fn = wrappers[key]

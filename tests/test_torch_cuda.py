@@ -523,15 +523,18 @@ def test_lane_rows_kernel_matches_plain(dev, offset):
     """S2 against its plain version at payload ends (slack words 0),
     unaligned block offsets and a payload view one byte in (the byte-wise
     loads)."""
-    from tpuhuff_torch.kernels import lane_rows, lane_rows_reference
+    from tpuhuff_torch.kernels import lane_rows, lane_rows_reference, row_width
 
     for n_bytes, seed in ROW_CASES:
         payload, starts, ends = blocks_case(n_bytes, seed)
         store = torch.zeros(n_bytes + offset, dtype=torch.uint8, device=dev)
         store[offset:] = torch.from_numpy(payload).to(dev)
+        width = row_width(starts, ends)
         before = lane_rows.launches
-        rows, bit0 = lane_rows(store[offset:], starts, ends)
-        want = lane_rows_reference(torch.from_numpy(payload), starts, ends)
+        rows, bit0 = lane_rows(store[offset:], torch.from_numpy(starts).to(dev),
+                               width)
+        want = lane_rows_reference(torch.from_numpy(payload),
+                                   torch.from_numpy(starts), width)
         torch.cuda.synchronize()
         assert lane_rows.launches == before + 1
         assert rows.cpu().equal(want[0]) and bit0.cpu().equal(want[1])

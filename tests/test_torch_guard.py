@@ -2,6 +2,7 @@
 no JAX and nothing of the JAX package anywhere in the port, a launch
 counter on every kernel wrapper."""
 
+import ast
 import os
 import re
 import subprocess
@@ -91,6 +92,39 @@ def test_host_stage_kernels_sources_and_counters(kernel):
 
     wrapper = {"stitch": k.stitch_lanes, "lane_rows": k.lane_rows}[kernel]
     assert isinstance(wrapper.launches, int)
+
+
+def _imported_modules(path: str):
+    """The absolute names of the modules the port's file ``path`` imports
+    (for ``from x import y``, also ``x.y``: ``y`` may be a module)."""
+    package = os.path.relpath(os.path.dirname(path), ROOT).split(os.sep)
+    for node in ast.walk(ast.parse(open(path, encoding="utf-8").read())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = package[: len(package) + 1 - node.level] if node.level else []
+            mod = ".".join(base + ([node.module] if node.module else []))
+            yield mod
+            yield from (f"{mod}.{a.name}" for a in node.names)
+
+
+@pytest.mark.parametrize("layer,below", [
+    ("kernels", "io"), ("kernels", "dist"), ("io", "dist")])
+def test_imports_point_one_way(layer, below):
+    """The layers' arrows point down only: the kernels import nothing of
+    the file path (``io``) or of the mesh pipelines (``dist``), and the
+    file path nothing of ``dist``, which sits beside it and reuses it."""
+    forbidden = f"tpuhuff_torch.{below}"
+    root = os.path.join(PKG, layer)
+    hits = []
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            if name.endswith(".py"):
+                path = os.path.join(dirpath, name)
+                hits += [(os.path.relpath(path, ROOT), m)
+                         for m in _imported_modules(path)
+                         if m == forbidden or m.startswith(forbidden + ".")]
+    assert not hits, f"{layer} imports {below}: {hits}"
 
 
 def test_port_runs_without_jax():

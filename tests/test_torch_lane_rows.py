@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from tpuhuff_torch.kernels import lane_rows, lane_rows_reference
+from tpuhuff_torch.kernels import lane_rows, lane_rows_reference, row_width
 
 CSRC = Path(__file__).parent.parent / "tpuhuff_torch" / "csrc"
 
@@ -121,13 +121,15 @@ def test_reference_equals_payload_to_lane_words(n_bytes, seed):
 
     payload, starts, ends = blocks_case(n_bytes, seed)
     want_rows, want_bit0 = jax_lane_words(payload, starts, ends, 256)
-    rows, bit0 = lane_rows_reference(torch.from_numpy(payload), starts, ends)
+    width = row_width(starts, ends)
+    rows, bit0 = lane_rows_reference(torch.from_numpy(payload),
+                                     torch.from_numpy(starts), width)
     assert rows.numpy().view(np.uint32).shape == want_rows.shape
     assert np.array_equal(rows.numpy().view(np.uint32), want_rows)
     assert np.array_equal(bit0.numpy(), want_bit0)
-    # the CPU wrapper, with the offsets as CPU tensors
+    # the CPU wrapper
     got = lane_rows(torch.from_numpy(payload), torch.from_numpy(starts),
-                    torch.from_numpy(ends))
+                    width)
     assert got[0].equal(rows) and got[1].equal(bit0)
 
 
@@ -142,17 +144,30 @@ def test_offsets_inside_a_larger_payload():
     starts = np.array([13, 77, 4000, 7990], dtype=np.int64)
     ends = np.array([77, 700, 4001, 8008], dtype=np.int64)
     want_rows, want_bit0 = jax_lane_words(payload, starts, ends, 256)
-    rows, bit0 = lane_rows_reference(torch.from_numpy(payload), starts, ends)
+    rows, bit0 = lane_rows_reference(torch.from_numpy(payload),
+                                     torch.from_numpy(starts),
+                                     row_width(starts, ends))
     assert np.array_equal(rows.numpy().view(np.uint32), want_rows)
     assert np.array_equal(bit0.numpy(), want_bit0)
 
 
-def test_device_offsets_are_refused():
-    """W is computed on the host: offsets on another device raise."""
+def test_starts_on_another_device_than_the_payload_are_refused():
+    """The kernel reads the starts where the payload lies: starts on
+    another device raise, and so do starts of another dtype."""
     payload = torch.zeros(8, dtype=torch.uint8)
-    meta = torch.zeros(1, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError):
-        lane_rows(payload, meta, meta)
+        lane_rows(payload, torch.zeros(1, dtype=torch.int64, device="meta"), 2)
+    with pytest.raises(TypeError):
+        lane_rows(payload, torch.zeros(1, dtype=torch.int32), 2)
+
+
+@pytest.mark.parametrize("start_bits,end_bits", [
+    ([0, 5], [5]),    # one end short
+    ([-1], [7]),      # a negative offset
+])
+def test_row_width_refuses_bad_offsets(start_bits, end_bits):
+    with pytest.raises(ValueError):
+        row_width(np.array(start_bits), np.array(end_bits))
 
 
 @pytest.mark.parametrize("offset", [0, 1, 2, 3])
@@ -161,7 +176,8 @@ def test_body_under_gxx_equals_reference(harness, T, offset):
     for n_bytes, seed in CASES:
         payload, starts, ends = blocks_case(n_bytes, seed + 50)
         rows, bit0 = harness(payload, starts, ends, T, offset)
-        want_rows, want_bit0 = lane_rows_reference(torch.from_numpy(payload),
-                                                   starts, ends)
+        want_rows, want_bit0 = lane_rows_reference(
+            torch.from_numpy(payload), torch.from_numpy(starts),
+            row_width(starts, ends))
         assert np.array_equal(rows, want_rows.numpy().view(np.uint32)), n_bytes
         assert np.array_equal(bit0, want_bit0.numpy()), n_bytes

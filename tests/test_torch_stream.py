@@ -312,6 +312,47 @@ def test_hf2_pass1_raises_on_a_file_shorter_than_its_size(
                                 block_len=256, chunk_bytes=4096)
 
 
+@pytest.mark.parametrize("via", ["src.read", "read(n, slot)"])
+@pytest.mark.parametrize("n", [0, 1, 2, 5])
+def test_pipeline_submits_ahead_in_alternate_slots(n, via):
+    """The file calls' one loop over ``n`` pieces of :func:`_pieces`:
+    piece k+1 is read and submitted before piece k is collected, slots
+    alternate 0, 1 (the slot a piece is read into too), every handle is
+    collected once, in order, and nothing is read after the last piece."""
+    from tpuhuff_torch.io.host import _pieces, _pipeline
+
+    step, events = 3, []
+
+    class Src:
+        k = 0
+
+        def read(self, m):
+            events.append(("read", self.k))
+            self.k += 1
+            return bytes([self.k]) * m
+
+    src = Src()
+
+    def read(m, slot):
+        assert slot == src.k % 2
+        return np.frombuffer(src.read(m), dtype=np.uint8)
+
+    def submit(piece, slot):
+        assert piece.size == step
+        events.append(("submit", int(piece[0]) - 1, slot))
+        return int(piece[0]) - 1
+
+    pieces = _pieces(src, n * step, step,
+                     read if via == "read(n, slot)" else None)
+    _pipeline(pieces, submit, lambda k: events.append(("collect", k)))
+    want = []
+    for k in range(n):
+        want += [("read", k), ("submit", k, k % 2)]
+        want += [("collect", k - 1)] if k else []
+    want += [("collect", n - 1)] if n else []
+    assert events == want
+
+
 def test_hff_small_pieces_carry_bits_across_boundaries(tmp_path):
     """The ``.hff`` device writer in 1000-byte pieces (lanes of 256 bytes,
     the last ragged): the JAX device writer's and the host writer's bytes,

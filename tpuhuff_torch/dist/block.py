@@ -37,7 +37,7 @@ from ..core.canonical import build_tree_for_device, canonicalize
 from ..core.format import CompressError
 from ..core.tree import HuffTree
 from ..core.weights import ByteWeights
-from ..io.host import DEVICE_HF2_BLOCK
+from ..io.host import lane_of
 from ..kernels import (
     EncodeTables,
     count_missing,
@@ -141,13 +141,6 @@ def sharded_count_missing(blocks, valid_lens, lens_lut, mesh: Mesh) -> int:
     (``comp.rs:427-432``), :func:`~tpuhuff_torch.kernels.count_missing`
     on each shard's device."""
     return _missing(_place(blocks, valid_lens, mesh), lens_lut)
-
-
-def lane_of(block_len: int) -> int:
-    """K1's lane for blocks of ``block_len``: the largest power of two
-    that divides it, at most the device writer's block (256 bytes); the
-    lanes of every device writer and pipeline."""
-    return min(block_len & -block_len, DEVICE_HF2_BLOCK)
 
 
 def _encode_lanes(shards, tables: EncodeTables, mesh: Mesh,

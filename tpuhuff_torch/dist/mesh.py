@@ -20,27 +20,13 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from ..kernels._build import resolve_device
+
 __all__ = ["BLOCK_AXIS", "make_mesh", "resolve_device", "shard_ranges"]
 
 BLOCK_AXIS = "blocks"
 
 Mesh = Tuple[torch.device, ...]
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device`` with its index (``cuda`` is the
-    current card); ``cuda`` without a card raises, never falling back to
-    the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"device {device!r} requested, but "
-                               "torch.cuda.is_available() is False")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
 
 
 def make_mesh(devices: Optional[Sequence] = None,

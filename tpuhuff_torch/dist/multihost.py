@@ -214,9 +214,10 @@ def compress_file_multihost(
                     b0 = s_mine * sc_blocks
                     b1 = min(b0 + sc_blocks, n_blocks)
                     fp.seek(b0 * block_len)
-                    data = np.frombuffer(
-                        fp.read(min(b1 * block_len, total) - b0 * block_len),
-                        dtype=np.uint8)
+                    # straight into the encoder's slot: ``data`` is a view
+                    # of it, read for its CRC pieces before the next read
+                    data = enc.read(
+                        fp, min(b1 * block_len, total) - b0 * block_len, 0)
                     my_nb = b1 - b0
                     if data.size:
                         # each super-chunk is a stream of its own

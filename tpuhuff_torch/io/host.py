@@ -6,8 +6,9 @@ and reading the same bytes:
 
 * helpers the device routes share: :class:`StreamError`, the carrying
   :class:`_BitSink`, the CRC column's :class:`_CrcVerifier`, the chunk
-  and block defaults, pass 1's sampled reads (:func:`_sampled_pieces`)
-  and the read-ahead loop of every writer (:func:`_pipeline`);
+  and block defaults, K1's lane (:func:`lane_of`), pass 1's sampled
+  reads (:func:`_sampled_pieces`), the writers' reads (:func:`_pieces`)
+  and the one double-buffered loop of every file call (:func:`_pipeline`);
 * :func:`read_compress_write_hf2_host` — the ``.hf2`` ``device=False``
   writer (threaded C++ block encode, one worker thread ahead of the
   writes), with config 4's ``collect_hist``;
@@ -72,6 +73,13 @@ HOST_HF2_BLOCK = 65536  # the host writer's: per-block dispatch dominates below
 # its first decode (one extra payload copy then; block-parallel decodes
 # from then on)
 AUTO_INDEX_MIN = 32 << 20
+
+
+def lane_of(block_len: int) -> int:
+    """K1's lane for blocks of ``block_len``: the largest power of two
+    that divides it, at most the device writer's block (256 bytes); the
+    lanes of every device writer and pipeline."""
+    return min(block_len & -block_len, DEVICE_HF2_BLOCK)
 
 
 class StreamError(ValueError):
@@ -406,32 +414,39 @@ def _host_tree(bw: ByteWeights, max_code_len: int | None) -> HuffTree:
     return HuffTree.from_weights(bw)
 
 
-def _pipeline(src: BinaryIO, size: int, step: int, submit, collect,
-              read=None) -> None:
-    """The writers' read-ahead loop: ``size`` bytes of ``src`` in ``step``
-    pieces, where piece k+1 is read and handed to ``submit(data, slot)``
-    before ``collect`` takes piece k's handle; so the encode of one piece
-    (on a worker thread, or on the card) overlaps the write of the one
-    before it.  ``slot`` alternates 0, 1.  ``read(n, slot)``, where given,
-    reads a piece (a uint8 array of at most ``n`` bytes, empty at the end
-    of the file) in place of ``src.read``: the device writers read
-    straight into the slot's pinned buffer."""
-    left, k, pending = size, 0, None
-    while left > 0 or pending is not None:
-        handle = None
-        piece = np.empty(0, dtype=np.uint8)
-        if left > 0:
-            piece = (read(min(step, left), k % 2) if read is not None else
-                     np.frombuffer(src.read(min(step, left)), dtype=np.uint8))
-        if piece.size:
-            left -= piece.size
-            handle = submit(piece, k % 2)
-            k += 1
-        else:
-            left = 0
+def _pieces(src: BinaryIO, size: int, step: int, read=None):
+    """The writers' reads: up to ``size`` bytes of ``src`` in ``step``
+    pieces, each a uint8 array, until the file ends.  ``read(n, slot)``,
+    where given, reads a piece of at most ``n`` bytes in place of
+    ``src.read``, ``slot`` alternating 0, 1 as in :func:`_pipeline`: the
+    device writers read straight into the slot's pinned buffer."""
+    left, k = size, 0
+    while left > 0:
+        n = min(step, left)
+        piece = (read(n, k % 2) if read is not None else
+                 np.frombuffer(src.read(n), dtype=np.uint8))
+        if not piece.size:
+            return
+        left -= piece.size
+        k += 1
+        yield piece
+
+
+def _pipeline(items, submit, collect) -> None:
+    """The one double-buffered loop of the file calls: item k+1 is drawn
+    from ``items`` and handed to ``submit(item, slot)`` before ``collect``
+    takes item k's handle, so that the work on one item (on a worker
+    thread, or on the card) overlaps the collect of the one before it;
+    ``slot`` alternates 0, 1, and the last handle is collected at the
+    end.  Drawing an item may read it (:func:`_pieces`)."""
+    pending = None
+    for k, item in enumerate(items):
+        handle = submit(item, k % 2)
         if pending is not None:
             collect(pending)
         pending = handle
+    if pending is not None:
+        collect(pending)
 
 
 def read_compress_write_hf2_host(
@@ -482,7 +497,7 @@ def read_compress_write_hf2_host(
             sink.write(payload, nbits, bit_lens, crcs)
 
         with concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:
-            _pipeline(src, size, step,
+            _pipeline(_pieces(src, size, step),
                       lambda data, slot: ex.submit(encode_job, data), collect)
         sink.finish()
     return hist
@@ -527,7 +542,7 @@ def read_compress_write_host(
                 sink.write(payload, nbits)
 
         with concurrent.futures.ThreadPoolExecutor(max_workers=1) as ex:
-            _pipeline(src, size, step,
+            _pipeline(_pieces(src, size, step),
                       lambda data, slot: ex.submit(encode_job, data), collect)
         sink.finish()
 

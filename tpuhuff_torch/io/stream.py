@@ -29,9 +29,13 @@ canonical codes, :func:`decode_rows_general` for any other tree) and
 takes the decoded bytes' CRCs there (:func:`crc32_spans`), which the
 host checks against the stored column before it writes the group.
 
-Pipelining: launches are asynchronous on the current CUDA stream, host
-buffers are pinned, copies are ``non_blocking``, and the only sync point is
-the collect of the previous chunk (submit k+1, then collect k).
+Pipelining: every file call runs its chunks or groups through one loop,
+:func:`~tpuhuff_torch.io.host._pipeline` (submit k+1, then collect k).
+Launches are asynchronous on the current CUDA stream, and
+:class:`_Staging` makes every pinned buffer, every copy and every wait for
+a slot of a call.  The host waits for the card where a slot's buffer is
+reused (``sync.slot``) and where it collects the previous chunk
+(``sync.result``, ``sync.fetch``); pass 1 waits once, for its counts.
 
 Tracing: each file call is a root span (``compress`` or ``decompress``)
 of the active tracer (:func:`tpuhuff_torch.profiling.tracing`), with spans
@@ -63,8 +67,6 @@ from ..core.canonical import build_tree_for_device
 from ..core.format import CompressError
 from ..core.tree import HuffTree
 from ..core.weights import ByteWeights
-from ..dist.block import lane_of
-from ..dist.mesh import resolve_device as _resolve
 from ..kernels import (
     crc32_spans,
     decoder_for,
@@ -73,8 +75,10 @@ from ..kernels import (
     lane_rows,
     make_encode_tables,
     new_carry,
+    row_width,
     stitch_lanes,
 )
+from ..kernels._build import resolve_device as _resolve
 from ..profiling import count, span
 from .crc import crc32_combine
 from .host import (
@@ -86,12 +90,14 @@ from .host import (
     _check_sizes,
     _chunk_step,
     _HffSink,
+    _pieces,
     _pipeline,
     _read_header,
     _sampled_pieces,
     _start_hf2,
     _timed,
     _weights_from_stream,
+    lane_of,
     read_decompress_write_hf2_host,
 )
 
@@ -107,7 +113,8 @@ __all__ = ["read_compress_write_hf2", "read_decompress_write_hf2",
 DEVICE_DECODE_MAX_BLOCK = 2048
 
 _TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8,
-                 np.dtype(np.int32): torch.int32}
+                 np.dtype(np.int32): torch.int32,
+                 np.dtype(np.int64): torch.int64}
 
 
 def _open(path: str, mode: str):
@@ -133,10 +140,11 @@ def _tables_to(tables, dev: torch.device):
 
 
 class _Staging:
-    """Host side of the asynchronous copies: reusable pinned buffers keyed
-    by (role, slot).  A buffer is rewritten only after the copy that last
-    used it has finished (its event).  On the CPU every call is synchronous
-    and arrays pass through as tensors."""
+    """Host side of the asynchronous copies, and the only owner of a file
+    call's pinned buffers, copies and waits for a slot: reusable pinned
+    buffers keyed by (role, slot).  A buffer is rewritten only after the
+    copy that last used it has finished (its event).  On the CPU every
+    call is synchronous and arrays pass through as tensors."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -164,7 +172,8 @@ class _Staging:
         self._events[key] = ev
 
     def h2d(self, arr: np.ndarray, key) -> torch.Tensor:
-        """Copy a uint8/int32 array to the device (async on CUDA)."""
+        """Copy a uint8, int32 or int64 array to the device (async on
+        CUDA)."""
         arr = np.ascontiguousarray(arr)
         if not self.cuda:
             count("h2d_bytes", arr.nbytes)
@@ -277,9 +286,11 @@ class _DeviceBlockEncoder:
     bit-identical to encoding the block whole (prefix-code concatenation
     is associative); per-block bit lengths are lane sums.
 
-    A chunk is read straight into its slot's host buffer (:meth:`read`),
-    sized to whole blocks of lanes with only the tail zeroed, copied to
-    the device, and its lanes' valid counts are made there.  Then, on one
+    A chunk enters in one of two ways: read straight into its slot's host
+    buffer (:meth:`read`), sized to whole blocks of lanes with only the
+    tail zeroed, then copied to the device (:meth:`__call__`); or as a
+    view of a device copy of the file (:meth:`on_device`).  Its lanes'
+    valid counts are made on the device.  Then, on one
     stream: K1 (K5 with ``collect_hist``: the same launch counts the
     chunk's bytes, ``hist_data`` the lanes), the device stitch S1
     (:func:`stitch_lanes`), which takes the previous chunk's trailing bits
@@ -314,29 +325,21 @@ class _DeviceBlockEncoder:
 
     def read(self, src, n: int, slot: int) -> np.ndarray:
         """Read up to ``n`` bytes into ``slot``'s buffer (for
-        :func:`_pipeline`); returns the bytes read."""
+        :func:`_pieces`); returns the bytes read."""
         buf, got = self.staging.read_into(src, n, self._padded(n),
                                           ("lanes", slot))
         self._read[slot] = buf
         return buf.numpy()[:got]
 
     def __call__(self, data: np.ndarray, slot: int, fresh: bool = False):
-        """H2D + kernels + the small D2H for one chunk, without waiting
-        for any.  ``data`` is what :meth:`read` returned, or any bytes."""
+        """H2D + kernels + the small D2H of the chunk that :meth:`read`
+        put in ``slot`` (``data``, the bytes it returned), without waiting
+        for any."""
         with span("submit"):
             n = data.size
-            nbytes = self._padded(n)
-            buf = self._read.pop(slot, None)
-            if buf is None or buf.numpy().ctypes.data != data.ctypes.data:
-                buf = (self.staging._buffer(("lanes", slot), nbytes)
-                       if self.staging.cuda else torch.empty(nbytes, dtype=torch.uint8))
-                arr = buf.numpy()
-                with span("pin_copy"):
-                    arr[:n] = data
-                    arr[n:nbytes] = 0
-            return self._launch(
-                self.staging.to_device(buf[:nbytes], ("lanes", slot)), n,
-                slot, fresh)
+            buf = self._read.pop(slot)[: self._padded(n)]
+            return self._launch(self.staging.to_device(buf, ("lanes", slot)),
+                                n, slot, fresh)
 
     def on_device(self, copy: torch.Tensor, lo: int, n: int, slot: int):
         """The kernels and the small D2H of the chunk of ``n`` bytes at
@@ -473,15 +476,19 @@ def read_compress_write_hf2(
                     sink.write_aligned(c.full, c.nbits, c.partial,
                                        c.partial_bits, c.bit_lens, c.crcs)
 
+            # pass 2: chunk k+1 is launched (its stitch and CRCs too)
+            # before chunk k's bytes are copied back and written; its
+            # lanes are a view of the device copy, or read again into a
+            # pinned slot and copied
             if copy is not None:
-                _encode_resident(encoder, copy, size, step, collect)
+                _pipeline(range(0, size, step), lambda lo, slot:
+                          encoder.on_device(copy, lo, min(step, size - lo),
+                                            slot), collect)
             else:
-                # pass 2: chunk k+1 is read, copied and launched (its
-                # stitch and CRCs too) before chunk k's bytes are copied
-                # back and written
                 src.seek(0)
-                _pipeline(src, size, step, encoder, collect,
-                          lambda n, slot: encoder.read(src, n, slot))
+                _pipeline(_pieces(src, size, step, lambda n, slot:
+                                  encoder.read(src, n, slot)),
+                          encoder, collect)
             with span("sink"):
                 sink.finish()
         return hist
@@ -567,22 +574,6 @@ def _pass1_tree(counts: np.ndarray, size: int, hist_sample: int,
         return build_tree_for_device(ByteWeights(counts), max_len=ml_cap)[0]
 
 
-def _encode_resident(encoder: _DeviceBlockEncoder, copy: torch.Tensor,
-                     size: int, step: int, collect) -> None:
-    """Pass 2 of the resident route: each ``step`` chunk's lanes are a
-    view of the device copy, and chunk k+1 is launched before ``collect``
-    takes chunk k."""
-    pending = None
-    for k, lo in enumerate(range(0, size, step)):
-        n = min(step, size - lo)
-        handle = encoder.on_device(copy, lo, n, k % 2)
-        if pending is not None:
-            collect(pending)
-        pending = handle
-    if pending is not None:
-        collect(pending)
-
-
 def read_compress_write(
     src_path: str, dst_path: str, block_size: int = DEFAULT_BLOCK,
     device="cuda", stats: dict | None = None, hist_sample: int = 1,
@@ -634,8 +625,8 @@ def read_compress_write(
                     sink.write_aligned(c.full, c.nbits, c.partial,
                                        c.partial_bits)
 
-            _pipeline(src, size, step, submit, collect,
-                      lambda n, slot: encoder.read(src, n, slot))
+            _pipeline(_pieces(src, size, step, lambda n, slot:
+                              encoder.read(src, n, slot)), submit, collect)
             with span("sink"):
                 sink.finish()
 
@@ -773,9 +764,9 @@ def _decode_groups(hdr, src, dst, src_path: str, dev: torch.device,
     staging = _Staging(dev)
 
     def submit_group(g0: int, slot: int):
-        """Read + H2D of the group's payload bytes, then the row gather S2,
-        the decoder and C1 on the device, and the D2H of the output and
-        its CRCs."""
+        """Read + H2D of the group's payload bytes and block starts, then
+        the row gather S2, the decoder and C1 on the device, and the D2H of
+        the output and its CRCs."""
         with span("submit"):
             g1 = min(g0 + gsize, B)
             byte_lo = int(starts[g0]) // 8
@@ -788,8 +779,11 @@ def _decode_groups(hdr, src, dst, src_path: str, dev: torch.device,
                                   "MissingHeaderInfo")
             ls = (starts[g0:g1] - np.uint64(byte_lo * 8)).astype(np.int64)
             le = (ends[g0:g1] - np.uint64(byte_lo * 8)).astype(np.int64)
+            # the payload's device copy is a temporary: freed once S2 has
+            # its rows, before the decoder's output is allocated
             rows, bit0 = lane_rows(staging.to_device(buf, ("payload", slot)),
-                                   ls, le)
+                                   staging.h2d(ls, ("starts", slot)),
+                                   row_width(ls, le))
             out = decode(
                 rows, bit0,
                 staging.h2d((le - ls).astype(np.int32), ("nbits", slot)),
@@ -803,24 +797,22 @@ def _decode_groups(hdr, src, dst, src_path: str, dev: torch.device,
             return (staging.d2h(out, ("out", slot)), crcs, off, valid, last,
                     staging.fence())
 
-    pending = None
-    for k, g0 in enumerate(list(range(0, B, gsize)) + [None]):
-        handle = None
-        if g0 is not None:
-            handle = submit_group(g0, k % 2)
-        if pending is not None:
-            out, crcs, off, valid, last, done = pending
-            with span("sync.result"):
-                if done is not None:
-                    done.synchronize()
-            if column is not None:
-                with span("crc"):
-                    column.check(crcs.numpy().view(np.uint32), off, valid)
-            with span("collect"):
-                out = out.numpy()
-                if last != hdr.block_len:
-                    dst.write(out[:-1].reshape(-1))
-                    dst.write(out[-1, :last])
-                else:
-                    dst.write(out.reshape(-1))
-        pending = handle
+    def collect_group(handle) -> None:
+        """Wait for a group, check its CRCs against the column, then write
+        its bytes: the writer stage of a decompress."""
+        out, crcs, off, valid, last, done = handle
+        with span("sync.result"):
+            if done is not None:
+                done.synchronize()
+        if column is not None:
+            with span("crc"):
+                column.check(crcs.numpy().view(np.uint32), off, valid)
+        with span("collect"):
+            out = out.numpy()
+            if last != hdr.block_len:
+                dst.write(out[:-1].reshape(-1))
+                dst.write(out[-1, :last])
+            else:
+                dst.write(out.reshape(-1))
+
+    _pipeline(range(0, B, gsize), submit_group, collect_group)

@@ -16,7 +16,8 @@
   bytes, behind a carried partial byte (the host's ``stitch_words``);
 * :func:`lane_rows` (S2, ``csrc/lane_rows.cu`` over
   ``csrc/lane_rows_common.cuh``) — the decoders' rows cut out of a payload
-  on the device (the host's ``payload_to_lane_words``);
+  on the device (the host's ``payload_to_lane_words``), each row
+  :func:`row_width` words;
 * :func:`crc32_spans` (C1, ``csrc/crc32.cu`` over ``csrc/crc32_common.cuh``)
   — the zlib CRC32 of each span of bytes on the device, the ``.hf2`` CRC
   column (the host's ``crc32_blocks``; no TPU kernel).
@@ -50,6 +51,7 @@ from .decode import (
     make_canonical_decode_tables,
     make_decode_tables,
     payload_to_lane_words,
+    row_width,
 )
 from .encode import (
     EncodeTables,
@@ -94,6 +96,7 @@ __all__ = [
     "new_carry",
     "out_words",
     "payload_to_lane_words",
+    "row_width",
     "stitch_capacity",
     "stitch_lanes",
     "stitch_lanes_reference",

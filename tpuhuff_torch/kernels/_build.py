@@ -25,7 +25,7 @@ import time
 
 import torch
 
-__all__ = ["lib", "build_seconds", "check_tensor", "launch"]
+__all__ = ["lib", "build_seconds", "check_tensor", "launch", "resolve_device"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -190,3 +190,19 @@ def launch(name: str, device: torch.device, *args) -> None:
     if err != 0:
         text = lib().tpuhuff_error_string(err).decode(errors="replace")
         raise RuntimeError(f"{name}: CUDA error {err} ({text})")
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device`` with its index (``cuda`` is the
+    current card); ``cuda`` without a card raises, never falling back to
+    the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r} requested, but "
+                               "torch.cuda.is_available() is False")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}")
+    return dev

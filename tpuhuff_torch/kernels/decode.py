@@ -59,6 +59,7 @@ __all__ = [
     "LUT_BITS",
     "decoder_for",
     "payload_to_lane_words",
+    "row_width",
     "lane_rows",
     "lane_rows_reference",
     "decode_rows",
@@ -300,8 +301,7 @@ def payload_to_lane_words(payload, start_bits: np.ndarray, end_bits: np.ndarray,
 
     Block k's row starts at the u32 word holding ``start_bits[k]``.  Returns
     ``(rows (B, W) uint32, bit0 (B,) int32)``, ``bit0`` the start bit inside
-    the row; W covers the longest block plus one slack word, so the 2-word
-    window never reads past the row.  Same layout as
+    the row; W is :func:`row_width`.  Same layout as
     :func:`tpuhuff.kernels.decode.payload_to_lane_words`; the gather is
     the host runtime's threaded ``extract_rows``.
     """
@@ -312,59 +312,51 @@ def payload_to_lane_words(payload, start_bits: np.ndarray, end_bits: np.ndarray,
     buf[: raw.size] = raw
     words = buf.view(">u4").astype(np.uint32)
     start_w = (np.asarray(start_bits) // 32).astype(np.int64)
-    end_w = ((np.asarray(end_bits) + 31) // 32).astype(np.int64)
-    width = int(np.max(end_w - start_w + 1, initial=1)) + 1
-    rows = native.extract_rows(words, start_w.astype(np.uint64), width)
+    rows = native.extract_rows(words, start_w.astype(np.uint64),
+                               row_width(start_bits, end_bits))
     bit0 = (np.asarray(start_bits) - start_w * 32).astype(np.int32)
     return rows, bit0
 
 
-def _row_layout(start_bits, end_bits) -> tuple[np.ndarray, int]:
-    """Host ``(start_bits as int64, W)`` of :func:`lane_rows`: W as
-    :func:`payload_to_lane_words` computes it."""
-    arrays = []
-    for name, x in (("start_bits", start_bits), ("end_bits", end_bits)):
-        if isinstance(x, torch.Tensor):
-            if x.device.type != "cpu":
-                raise ValueError(f"{name} must be a host array, not on "
-                                 f"{x.device}: W is computed on the host")
-            x = x.numpy()
-        arrays.append(np.ascontiguousarray(x, dtype=np.int64).reshape(-1))
-    starts, ends = arrays
+def row_width(start_bits, end_bits) -> int:
+    """W, the words of each block's row (:func:`lane_rows`,
+    :func:`payload_to_lane_words`): the longest block's words, from the
+    word of its first bit to that of its last, and one slack word, so that
+    the 2-word window never reads past the row; 2 for no blocks.
+    ``start_bits`` and ``end_bits`` (B,) are each block's bit offsets, as
+    host arrays."""
+    starts = np.asarray(start_bits, dtype=np.int64).reshape(-1)
+    ends = np.asarray(end_bits, dtype=np.int64).reshape(-1)
     if starts.shape != ends.shape:
         raise ValueError("start_bits and end_bits must have one entry a block")
     if starts.size and min(int(starts.min()), int(ends.min())) < 0:
         raise ValueError("bit offsets must not be negative")
     # shifts, not floor divisions: numpy's integer division is slow
-    width = int(np.max(((ends + 31) >> 5) - (starts >> 5), initial=0)) + 2
-    return starts, width
+    return int(np.max(((ends + 31) >> 5) - (starts >> 5), initial=0)) + 2
 
 
-def lane_rows(payload: torch.Tensor, start_bits, end_bits
+def lane_rows(payload: torch.Tensor, starts: torch.Tensor, width: int
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Cut each block's row of big-endian u32 words out of a payload that
     lies on the device (S2): the decoders' operand, without a host gather.
 
-    ``payload`` is a contiguous (n,) uint8 tensor; ``start_bits`` and
-    ``end_bits`` (B,) are each block's bit offsets in it, as host arrays
-    (numpy or CPU tensors).  Returns ``(rows (B, W) int32, bit0 (B,)
-    int32)`` on the payload's device, the layout of
-    :func:`payload_to_lane_words`: ``rows[b, j]`` is the big-endian word
-    ``start_bits[b] // 32 + j`` of the payload, 0 past its end, and
-    ``bit0[b] = start_bits[b] % 32``; W covers the longest block plus one
-    slack word.  CUDA tensors launch the kernel (``csrc/lane_rows.cu``;
-    ``start_bits`` goes to the card through a pinned buffer the wrapper
-    keeps), counted in ``lane_rows.launches``; CPU tensors take
-    :func:`lane_rows_reference`.
+    ``payload`` is a contiguous (n,) uint8 tensor; ``starts`` (B,) int64,
+    on the payload's device, is each block's first bit in it, and
+    ``width`` the words of a row (:func:`row_width` of the blocks' bit
+    offsets).  Returns ``(rows (B, W) int32, bit0 (B,) int32)`` on the
+    payload's device, the layout of :func:`payload_to_lane_words`:
+    ``rows[b, j]`` is the big-endian word ``starts[b] // 32 + j`` of the
+    payload, 0 past its end, and ``bit0[b] = starts[b] % 32``.  CUDA
+    tensors launch the kernel (``csrc/lane_rows.cu``), counted in
+    ``lane_rows.launches``; CPU tensors take :func:`lane_rows_reference`.
     """
-    _check_payload(payload)
+    _check_rows_args(payload, starts)
     if payload.device.type == "cpu":
-        return lane_rows_reference(payload, start_bits, end_bits)
+        return lane_rows_reference(payload, starts, width)
     if payload.device.type != "cuda":
         raise ValueError(f"unsupported device {payload.device}")
     with span("launch"):
-        starts, width = _row_layout(start_bits, end_bits)
-        B = starts.size
+        B = starts.numel()
         if B * width >= 1 << 31:
             raise ValueError(f"{B} rows of {width} words exceed one launch")
         dev = payload.device
@@ -372,55 +364,31 @@ def lane_rows(payload: torch.Tensor, start_bits, end_bits
         bit0 = torch.empty(B, dtype=torch.int32, device=dev)
         if B == 0:
             return rows, bit0
-        dstarts = _starts_to_device(starts, dev)
         _build.launch("tpuhuff_lane_rows", dev, payload.data_ptr(),
-                      payload.numel(), dstarts.data_ptr(), rows.data_ptr(),
+                      payload.numel(), starts.data_ptr(), rows.data_ptr(),
                       bit0.data_ptr(), B, width)
         lane_rows.launches += 1
         return rows, bit0
 
 
 lane_rows.launches = 0
-_staged: dict = {}  # device -> (pinned buffer, event of its last copy)
 
 
-def _starts_to_device(starts: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """``starts`` (int64) on ``dev``, through a pinned buffer kept per
-    device and rewritten only once its last copy has finished (a pinned
-    allocation per call costs milliseconds of host time)."""
-    buf, done = _staged.get(dev, (None, None))
-    if done is not None:
-        with span("sync.slot"):
-            done.synchronize()
-    if buf is None or buf.numel() < starts.nbytes:
-        nbytes = max(starts.nbytes, 1 << 20)
-        with span("pin_alloc", nbytes):
-            buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
-    host = buf[: starts.nbytes].view(torch.int64)
-    with span("pin_copy"):
-        host.numpy()[:] = starts
-    count("h2d_bytes", starts.nbytes)
-    out = host.to(dev, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record(torch.cuda.current_stream(dev))
-    _staged[dev] = (buf, done)
-    return out
-
-
-def _check_payload(payload) -> None:
+def _check_rows_args(payload, starts) -> None:
     if payload.dim() != 1 or payload.dtype != torch.uint8:
         raise ValueError("payload must be a (n,) uint8 tensor")
     if not payload.is_contiguous():
         raise ValueError("payload must be contiguous")
+    _build.check_tensor(starts, "starts", torch.int64, (starts.numel(),),
+                        payload.device)
 
 
-def lane_rows_reference(payload: torch.Tensor, start_bits, end_bits
-                        ) -> tuple[torch.Tensor, torch.Tensor]:
+def lane_rows_reference(payload: torch.Tensor, starts: torch.Tensor,
+                        width: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`lane_rows` (any device): the payload
     padded to whole words and two slack words, assembled into big-endian
     int64 words, and gathered by index (indices past the end give 0)."""
-    _check_payload(payload)
-    starts, width = _row_layout(start_bits, end_bits)
+    _check_rows_args(payload, starts)
     dev = payload.device
     n = payload.numel()
     nwords = (n + 3) // 4 + 2
@@ -428,10 +396,9 @@ def lane_rows_reference(payload: torch.Tensor, start_bits, end_bits
     buf[:n] = payload.long()
     b = buf.view(nwords, 4)
     words = (b[:, 0] << 24) | (b[:, 1] << 16) | (b[:, 2] << 8) | b[:, 3]
-    s = torch.from_numpy(starts).to(dev)
-    idx = (s >> 5)[:, None] + torch.arange(width, device=dev)[None, :]
+    idx = (starts >> 5)[:, None] + torch.arange(width, device=dev)[None, :]
     rows = torch.where(idx < nwords, words[idx.clamp(max=nwords - 1)], 0)
-    return _i64_to_i32(rows), (s & 31).to(torch.int32)
+    return _i64_to_i32(rows), (starts & 31).to(torch.int32)
 
 
 def _check_args(rows, bit0, nbits, tables, block_len):
